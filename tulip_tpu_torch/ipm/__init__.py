@@ -1,0 +1,19 @@
+"""Interior-point method (HSD) over batch-first tensors."""
+
+from .batch import batched_hsd_solve, stack_lps_host
+from .data import LPData, lp_data_from_problem, make_lp_data
+from .hsd import HSDOptions, HSDState, hsd_solve
+from .point import Point, Residuals
+
+__all__ = [
+    "LPData",
+    "lp_data_from_problem",
+    "make_lp_data",
+    "Point",
+    "Residuals",
+    "HSDOptions",
+    "HSDState",
+    "hsd_solve",
+    "batched_hsd_solve",
+    "stack_lps_host",
+]

@@ -1,0 +1,103 @@
+"""Batched inverse Cholesky factor: the CUDA kernel and its plain version.
+
+Counterpart of ``tulip_tpu/ops/chol.py``. ``batched_cholesky_inverse``
+returns L⁻¹ with K = L Lᵀ for a batch of SPD matrices K (B, m, m):
+
+- on a CUDA tensor it launches ``csrc/chol_inv.cu`` (built at first use,
+  see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback;
+- on a CPU tensor it runs :func:`batched_cholesky_inverse_plain`, the
+  same function in plain PyTorch.
+
+Failure signalling follows the reference: a non-SPD instance gives
+non-finite values in its own output (and in no other); nothing is raised.
+The strict upper triangle is exactly zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# Launches of the CUDA kernel since the process started (or the caller last
+# reset it); the plain version does not count.
+KERNEL_LAUNCHES = 0
+
+MAX_M = 1024
+
+
+def batched_cholesky_inverse_plain(K: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ for a batch K (B, m, m) with torch.linalg, any device.
+
+    ``cholesky_ex`` does not produce NaN on a non-SPD input: it returns
+    ``info > 0`` and a partial factor. Those lanes are overwritten with NaN
+    to keep the reference's contract (``tulip_tpu/ops/chol.py:27-29``).
+    """
+    L, info = torch.linalg.cholesky_ex(K)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    Li = torch.linalg.solve_triangular(L, eye.expand_as(K), upper=False)
+    return torch.tril(Li).masked_fill((info > 0)[:, None, None],
+                                      float("nan"))
+
+
+def _launch(K: torch.Tensor) -> torch.Tensor:
+    global KERNEL_LAUNCHES
+    from .. import _build
+
+    if K.dtype != torch.float32:
+        raise TypeError(f"chol_inv kernel takes float32, got {K.dtype}")
+    if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
+        raise ValueError(f"expected (B, m, m), got {tuple(K.shape)}")
+    B, m = K.shape[0], K.shape[-1]
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"chol_inv kernel takes 1 <= m <= {MAX_M}, got {m}")
+    if not K.is_contiguous():
+        raise ValueError("chol_inv kernel needs a contiguous K")
+    out = torch.empty_like(K)
+    if B == 0:
+        return out
+    lib = _build.load("chol_inv")
+    fn = lib.tulip_chol_inv_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(K.device).cuda_stream
+    err = fn(K.data_ptr(), out.data_ptr(), B, m, K.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def batched_cholesky_inverse(K: torch.Tensor, block: int = 0,
+                             pack: int = 0) -> torch.Tensor:
+    """L⁻¹ for a batch of SPD matrices K (B, m, m), K = L Lᵀ.
+
+    CUDA tensors go to the hand-written kernel (float32, contiguous,
+    m ≤ 1024; anything else raises); CPU tensors to the plain version.
+    ``block`` and ``pack`` exist for parity with
+    ``batched_cholesky_inverse_pallas``; they tune the TPU kernel's layout
+    and have no meaning here, so every value gives the same output.
+    """
+    del block, pack
+    if K.device.type == "cuda":
+        return _launch(K)
+    if K.device.type == "cpu":
+        return batched_cholesky_inverse_plain(K)
+    raise ValueError(f"unsupported device {K.device}")
+
+
+def cholesky_inverse(K: torch.Tensor) -> torch.Tensor:
+    """Inverse lower Cholesky factor L⁻¹ of one matrix (m, m) or a batch
+    (B, m, m). Solves of ``K x = r`` become ``x = L⁻ᵀ (L⁻¹ r)``."""
+    if K.dim() == 2:
+        return batched_cholesky_inverse(K.unsqueeze(0).contiguous())[0]
+    return batched_cholesky_inverse(K)
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of an SPD matrix or batch, as
+    L = (L⁻¹)⁻¹ from the inverse-factor kernel and one triangular solve."""
+    Li = cholesky_inverse(K)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return torch.linalg.solve_triangular(Li, eye.expand_as(Li), upper=False)
