@@ -214,14 +214,58 @@ def test_hsd_solve_single_lp_and_padding():
                                rtol=1e-7)
 
 
-@pytest.mark.parametrize("opts", [HSDOptions(OutputLevel=1),
-                                  HSDOptions(TimeLimit=10.0),
-                                  HSDOptions(MehrotraStart=True)],
-                         ids=["output", "time-limit", "mehrotra"])
-def test_unported_options_raise(opts):
-    dat = make_lp_data(*random_lps(1, B=1)[0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        hsd_solve(dat, DenseK1Backend(), opts)
+@pytest.mark.parametrize("opts,B,exc", [
+    (HSDOptions(OutputLevel=1), 2, ValueError),
+    (HSDOptions(TimeLimit=10.0), 2, ValueError),
+    (HSDOptions(MehrotraStart=True), 1, NotImplementedError)],
+    ids=["output", "time-limit", "mehrotra"])
+def test_unported_options_raise(opts, B, exc):
+    """MehrotraStart is not ported yet. The iteration log and the time
+    limit are ported for one LP; a batch raises, as the reference's
+    batched solve has neither."""
+    dats = stack_lps_host(random_lps(1, B=B), device="cpu",
+                          dtype=torch.float64)
+    with pytest.raises(exc):
+        batched_hsd_solve(DenseK1Backend(), opts, dats)
+
+
+def test_output_level_log_matches_jax(capsys):
+    """OutputLevel=1 prints the reference's header and one row per pass,
+    row k for point k, with the same numbers in f64."""
+    raw = random_lps(21, B=1)[0]
+    jhsd.hsd_solve(jdata.make_lp_data(*raw), JDense(),
+                   jhsd.HSDOptions(OutputLevel=1))
+    want = capsys.readouterr().out.splitlines()
+    got_state = hsd_solve(make_lp_data(*raw, device="cpu"), DenseK1Backend(),
+                          HSDOptions(OutputLevel=1))
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want)
+    rows = 0
+    for g, w in zip(got, want):
+        if g[:4].strip().isdigit():
+            rows += 1
+            # Every column but the last (wall-clock seconds).
+            assert g.rsplit(None, 1)[0] == w.rsplit(None, 1)[0]
+        else:
+            assert g == w
+    assert rows == int(got_state.niter[0]) + 1
+
+
+@pytest.mark.parametrize("limit,status", [
+    (0.0, TerminationStatus.TIME_LIMIT), (600.0, TerminationStatus.OPTIMAL)],
+    ids=["zero", "generous"])
+def test_time_limit_matches_jax(limit, status):
+    """A finite TimeLimit is checked after each iteration: 0 stops after
+    the first, in both packages; a generous one changes nothing."""
+    raw = random_lps(22, B=1)[0]
+    want = jhsd.hsd_solve(jdata.make_lp_data(*raw), JDense(),
+                          jhsd.HSDOptions(TimeLimit=limit))
+    got = hsd_solve(make_lp_data(*raw, device="cpu"), DenseK1Backend(),
+                    HSDOptions(TimeLimit=limit))
+    assert int(got.status[0]) == int(want.status) == int(status)
+    assert int(got.niter[0]) == int(want.niter)
+    if status == TerminationStatus.TIME_LIMIT:
+        assert int(got.niter[0]) == 1
 
 
 def test_fused_solve_raises():

@@ -2,13 +2,16 @@
 the card. Marked ``cuda``; without a CUDA device every test skips. Run on a
 GPU machine with ``python -m pytest tests/test_torch_kernels_cuda.py -n 0``."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from tulip_tpu_torch.ops import chol
+from tulip_tpu_torch.ops import chol, gram
 from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                       batched_cholesky_inverse_plain)
+from tulip_tpu_torch.ops.gram import scaled_gram, scaled_gram_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +92,53 @@ def test_small_k1_solve_on_card_uses_kernel(cuda):
     out = batched_hsd_solve(SmallK1Backend(refinement_steps=1), opts, dats)
     assert chol.KERNEL_LAUNCHES > before
     assert (out.status == int(TerminationStatus.OPTIMAL)).all().item()
+
+
+def gram_inputs(B, m, n, seed, device):
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.standard_normal((B, m, n)), dtype=torch.float32,
+                        device=device)
+    d = torch.as_tensor(10.0 ** rng.uniform(-3, 3, (B, n)),
+                        dtype=torch.float32, device=device)
+    return A, d
+
+
+@pytest.mark.parametrize("B,m,n", [(1, 1, 1), (1, 37, 200), (3, 300, 520),
+                                   (2, 129, 7), (2, 1000, 1500)])
+def test_scaled_gram_kernel_matches_plain(cuda, B, m, n):
+    A, d = gram_inputs(B, m, n, seed=m, device=cuda)
+    before = gram.KERNEL_LAUNCHES
+    got = scaled_gram(A, d)
+    torch.cuda.synchronize()
+    assert gram.KERNEL_LAUNCHES == before + 1
+    want = scaled_gram_plain(A, d)
+    # The kernel mirrors its lower tiles: K is exactly symmetric.
+    assert torch.equal(got, got.transpose(-1, -2))
+    # f32 sums of n terms in another order than cuBLAS's, per lane.
+    err = (got - want).abs().amax(dim=(-1, -2))
+    assert (err <= 1e-5 * want.abs().amax(dim=(-1, -2))).all()
+
+
+def test_scaled_gram_kernel_refuses(cuda):
+    A, d = gram_inputs(2, 16, 24, seed=3, device=cuda)
+    with pytest.raises(TypeError):
+        scaled_gram(A.double(), d.double())
+    with pytest.raises(ValueError):
+        scaled_gram(A.transpose(1, 2).contiguous().transpose(1, 2), d)
+    with pytest.raises(ValueError):
+        scaled_gram(A, d[:, :-1])
+
+
+def test_dense_pallas_model_on_card_uses_kernel(cuda):
+    from tulip_tpu_torch import Model, get_attribute, read_mps
+    from tulip_tpu_torch.status import TerminationStatus
+
+    m = Model(device=cuda)
+    m.pbdata = read_mps(str(Path(__file__).resolve().parent / "data"
+                            / "lp_opt.mps"))
+    m.params.ArithmeticDtype = "float32"
+    m.params.KKT.Backend = "dense-pallas"
+    before = gram.KERNEL_LAUNCHES
+    assert m.optimize() == TerminationStatus.OPTIMAL
+    assert gram.KERNEL_LAUNCHES > before
+    assert abs(get_attribute(m, "ObjectiveValue") - 1.5) <= 1e-3

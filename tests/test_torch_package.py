@@ -12,13 +12,16 @@ ROOT = Path(__file__).resolve().parents[1]
 
 VERBATIM = ["status.py", "problem.py", "solution.py", "params.py",
             "presolve/__init__.py", "presolve/presolve.py",
-            "presolve/ops.py"]
+            "presolve/ops.py", "presolve/native.py", "io/__init__.py",
+            "io/mps.py", "io/native.py", "io/semantics.py", "api.py"]
 
 
 def test_import_does_not_pull_in_jax():
     code = ("import sys, tulip_tpu_torch, tulip_tpu_torch.ipm, "
             "tulip_tpu_torch.kkt, tulip_tpu_torch.ops, "
-            "tulip_tpu_torch.convert, tulip_tpu_torch.model; "
+            "tulip_tpu_torch.convert, tulip_tpu_torch.model, "
+            "tulip_tpu_torch.cli, tulip_tpu_torch.api, tulip_tpu_torch.io, "
+            "tulip_tpu_torch.kkt.gram, tulip_tpu_torch.ops.gram; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "
@@ -37,6 +40,10 @@ def test_host_module_is_verbatim_copy(rel):
 @pytest.mark.parametrize("module,name", [
     ("ipm.data", "standard_form_arrays"),
     ("model", "_extract_solution"),
+    ("model", "_trivial_solve"),
+    ("model", "_certificate_tol"),
+    ("model", "_validate_certificates"),
+    ("linprog", "_fill_pbdata"),
     ("utils", "open_maybe_compressed"),
     ("utils", "pos_part"),
     ("utils", "neg_part"),

@@ -3,19 +3,32 @@
 A port of ``tulip_tpu`` (JAX/XLA/Pallas) beside it in the same repository;
 ``tulip_tpu`` stays the reference that this package is tested against. The
 module layout mirrors ``tulip_tpu``'s, so each module has a counterpart
-there. So far it covers the batched HSD path: ``batch_linprog`` and
-``ipm.batched_hsd_solve`` with the dense K1 backends, whose f32
-factorization on CUDA is the hand-written kernel ``csrc/chol_inv.cu``.
+there. So far it covers:
 
-Host layers (problem data, parameters, statuses, presolve) are numpy code
-copied verbatim from ``tulip_tpu``, so this package runs where JAX is not
-installed. It does not change torch's global default dtype: every entry
-that builds tensors takes ``device`` (default ``"cuda"``) and ``dtype``.
+- one LP: ``Model.optimize()``, ``linprog``, the CLI and the MPS reader,
+  with HSD on the dense K1 backends ``"dense"``, ``"pallas-small"`` and
+  ``"dense-pallas"``;
+- many LPs: ``batch_linprog`` and ``ipm.batched_hsd_solve``.
+
+Two hand-written CUDA kernels serve the f32 paths on the card:
+``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``) and
+``csrc/scaled_gram.cu`` (K = A·diag(d)·Aᵀ of ``"dense-pallas"``).
+
+Host layers (problem data, parameters, statuses, presolve, MPS reading)
+are numpy code copied verbatim from ``tulip_tpu``, so this package runs
+where JAX is not installed. It does not change torch's global default
+dtype: every entry that builds tensors takes ``device`` (default
+``"cuda"``) and ``dtype``.
 """
 
 __version__ = "0.1.0"
 
-from .linprog import LinprogResult, batch_linprog  # noqa: E402
+from .api import (get_attribute, get_parameter, load_problem,  # noqa: E402
+                  set_attribute, set_parameter)
+from .io import read_mps  # noqa: E402
+from .kkt import make_backend  # noqa: E402
+from .linprog import LinprogResult, batch_linprog, linprog  # noqa: E402
+from .model import Model  # noqa: E402
 from .params import (IPMOptions, KKTOptions, Parameters,  # noqa: E402
                      PresolveOptions)
 from .problem import ProblemData  # noqa: E402
@@ -31,6 +44,15 @@ __all__ = [
     "PresolveOptions",
     "ProblemData",
     "Solution",
+    "Model",
+    "load_problem",
+    "get_parameter",
+    "set_parameter",
+    "get_attribute",
+    "set_attribute",
+    "read_mps",
+    "make_backend",
     "LinprogResult",
+    "linprog",
     "batch_linprog",
 ]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from functools import partial
 from typing import Any, NamedTuple, Tuple
 
@@ -55,8 +56,10 @@ class HSDOptions:
     (reference: src/IPM/options.jl:1-25). Tolerance and regularization
     fields must be pre-resolved floats.
 
-    ``OutputLevel > 0``, a finite ``TimeLimit`` and ``MehrotraStart`` are
-    not ported yet: the solve entries raise on them.
+    ``OutputLevel > 0`` (an iteration log) and a finite ``TimeLimit``
+    apply to one LP, a batch of one; for more lanes the solve raises
+    ``ValueError``, as the reference's batched path has neither.
+    ``MehrotraStart`` is not ported yet and raises.
     """
 
     TolerancePFeas: float = 1.4901161193847656e-08
@@ -526,21 +529,64 @@ def solve(backend, opts: HSDOptions, dat: LPData) -> HSDState:
     """Cold-start every lane and run :func:`hsd_iteration` until no lane is
     UNKNOWN. A lane that has terminated keeps its state, as a lane of
     ``lax.while_loop`` under vmap does. Terminates: every lane reaches a
-    status by IterationsLimit."""
-    if opts.OutputLevel > 0:
-        raise NotImplementedError("OutputLevel > 0 is not ported yet")
-    if opts.TimeLimit != float("inf"):
-        raise NotImplementedError("a finite TimeLimit is not ported yet")
+    status by IterationsLimit. For one LP, the same loop prints the
+    iteration log and checks the wall-clock limit between passes
+    (reference: ``tulip_tpu/ipm/hsd.py:597-649``, HSD.jl:203-350)."""
     if opts.MehrotraStart:
         raise NotImplementedError("MehrotraStart is not ported yet")
+    host_driven = opts.OutputLevel > 0 or opts.TimeLimit != float("inf")
+    if host_driven and dat.A.shape[0] != 1:
+        raise ValueError("OutputLevel > 0 and a finite TimeLimit apply to "
+                         "one LP, not to a batch")
     with full_matmul_precision():
         state = init_state(dat, backend)
+        tstart = time.time()
+        if opts.OutputLevel > 0:
+            _log_header(backend, dat)
         while True:
             live = state.status == _UNKNOWN
             if not bool(live.any()):
-                return state
+                break
+            # Each pass evaluates residuals and objectives at the current
+            # point, then steps if the lane is not terminal: the logged row
+            # belongs to the entry iteration count (row k = point k).
+            n_entry = int(state.niter) if opts.OutputLevel > 0 else 0
             state = tree_where(live, hsd_iteration(backend, opts, dat, state),
                                state)
+            if host_driven:
+                ttot = time.time() - tstart
+                if opts.OutputLevel > 0:
+                    _log_row(n_entry, state, ttot)
+                if ttot >= opts.TimeLimit and int(state.status) == _UNKNOWN:
+                    state = state._replace(status=torch.full_like(
+                        state.status, int(TerminationStatus.TIME_LIMIT)))
+    if opts.OutputLevel > 0:
+        print(f"Solver exited with status "
+              f"{TerminationStatus(int(state.status)).name}")
+    return state
+
+
+def _log_header(backend, dat: LPData) -> None:
+    """The iteration log's header (reference: ``tulip_tpu/ipm/hsd.py:599-610``,
+    HSD.jl:203-230)."""
+    print("\nOptimizer info (HSD)")
+    print(f"Constraints  : {dat.nrow}")
+    print(f"Variables    : {dat.ncol}")
+    print("Linear solver:")
+    print(f"  Arithmetic : {backend.arithmetic_label(dat.c.dtype)}")
+    print(f"  Backend    : {backend.name}")
+    print(f"  System     : {backend.linear_system()}")
+    print(f"\n{'Itn':>4}  {'PObj':>14}  {'DObj':>14}  "
+          f"{'PFeas':>8} {'DFeas':>8} {'GFeas':>8}  {'Mu':>7}  Time")
+
+
+def _log_row(k: int, s: HSDState, ttot: float) -> None:
+    print(f"{k:4d}  {float(s.pobj):+14.7e}  "
+          f"{float(s.dobj):+14.7e}  "
+          f"{float(torch.maximum(s.res.rp_nrm, s.res.ru_nrm)):8.2e} "
+          f"{float(s.res.rd_nrm):8.2e} "
+          f"{float(s.res.rg_nrm):8.2e}  "
+          f"{float(s.pt.mu):7.1e}  {ttot:.2f}")
 
 
 def hsd_solve(dat: LPData, backend, opts: HSDOptions) -> HSDState:

@@ -37,6 +37,15 @@ class KKTBackend:
     name = "abstract"
     systems: Tuple[str, ...] = ()
 
+    # -- introspection (reference: src/KKT/KKT.jl:103-121) ---------------
+    def arithmetic_label(self, dtype: torch.dtype) -> str:
+        """Label for the solver-header log: the dtype's name, as numpy
+        spells it ("float64")."""
+        return str(dtype).replace("torch.", "")
+
+    def linear_system(self) -> str:
+        return self.systems[0] if self.systems else "unknown"
+
     def setup(self, A: torch.Tensor) -> Any:
         raise NotImplementedError
 

@@ -69,6 +69,9 @@ class DenseK1Backend(KKTBackend):
     systems = ("K1",)
     inv_factor: bool = False
 
+    def linear_system(self) -> str:
+        return "Normal equations (K1)"
+
     def setup(self, A: torch.Tensor) -> DenseK1State:
         B, m, n = A.shape
         kw = dict(dtype=A.dtype, device=A.device)

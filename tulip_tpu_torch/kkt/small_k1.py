@@ -28,7 +28,7 @@ class SmallK1Backend(DenseK1Backend):
     yet and raises.
     """
 
-    name = "small-k1"
+    name = "pallas-small"
     inv_factor: bool = True
     fused_solve: bool = False
 

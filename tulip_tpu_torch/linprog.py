@@ -1,14 +1,17 @@
-"""scipy.optimize.linprog-style batched entry point.
+"""scipy.optimize.linprog-compatible entry points.
 
-Counterpart of ``tulip_tpu/linprog.py``: ``batch_linprog`` and the result
-type it shares with the single-LP ``linprog``, which waits for the ``Model``
-port.
+Counterpart of ``tulip_tpu/linprog.py``: ``linprog`` solves one LP through
+:class:`~tulip_tpu_torch.model.Model`, ``batch_linprog`` many in batched
+solves. Both take ``device`` (default ``"cuda"``)::
+
+    from tulip_tpu_torch import linprog
+    res = linprog(c, A_ub=..., b_ub=..., A_eq=..., b_eq=..., bounds=...)
+    res.x, res.fun, res.status, res.success
 """
 
 from __future__ import annotations
 
 import dataclasses
-from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -77,19 +80,32 @@ def _fill_pbdata(pb, c, A_ub, b_ub, A_eq, b_eq, bounds):
     return n
 
 
-def _to_numpy(state) -> SimpleNamespace:
-    """The fields of a solved batch that extraction reads, on the host."""
-    def h(t):
-        return t.cpu().numpy()
+def linprog(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None,
+            bounds: Optional[Sequence] = None, *,
+            params: Optional[Parameters] = None,
+            device="cuda") -> LinprogResult:
+    """Minimize ``c @ x`` s.t. ``A_ub x <= b_ub``, ``A_eq x = b_eq``,
+    ``bounds[j] = (lb, ub)`` (default ``(0, None)`` like scipy), with the
+    IPM on ``device``."""
+    from .api import get_attribute
+    from .model import Model
 
-    pt = state.pt
-    return SimpleNamespace(
-        status=h(state.status), niter=h(state.niter),
-        primal_status=h(state.primal_status),
-        dual_status=h(state.dual_status),
-        pobj=h(state.pobj), dobj=h(state.dobj),
-        pt=SimpleNamespace(x=h(pt.x), zl=h(pt.zl), zu=h(pt.zu), y=h(pt.y),
-                           tau=h(pt.tau)))
+    m = Model(params, device=device)
+    n = _fill_pbdata(m.pbdata, c, A_ub, b_ub, A_eq, b_eq, bounds)
+
+    st = m.optimize()
+    code, msg = _STATUS_MAP.get(st, (4, st.name))
+    sol = m.solution
+    x = sol.x.copy() if sol is not None else np.full(n, np.nan)
+    fun = (get_attribute(m, "ObjectiveValue")
+           if st == TerminationStatus.OPTIMAL else np.nan)
+    return LinprogResult(
+        x=x, fun=fun, success=st == TerminationStatus.OPTIMAL,
+        status=code, message=msg, nit=m.barrier_iterations,
+        termination=st,
+        y=(sol.y_lower - sol.y_upper) if sol is not None else None,
+        s=(sol.s_lower - sol.s_upper) if sol is not None else None,
+    )
 
 
 def batch_linprog(problems: Sequence[dict], *, device="cuda",
@@ -123,7 +139,7 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
     from .ipm.data import standard_form_arrays
     from .ipm.hsd import HSDOptions
     from .kkt import DenseK1Backend, SmallK1Backend
-    from .model import _extract_solution
+    from .model import TORCH_DTYPES, _extract_solution, _host_lane, _to_numpy
     from .presolve import PresolveData, postsolve
     from .problem import ProblemData
     from .solution import Solution
@@ -136,8 +152,7 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
 
     params = params or Parameters()
     dt = np.dtype(dtype)
-    tdtype = {np.dtype(np.float32): torch.float32,
-              np.dtype(np.float64): torch.float64}[dt]
+    tdtype = TORCH_DTYPES[dt]
     device = torch.device(device)
     if presolve is None:
         presolve = params.Presolve.Level > 0
@@ -223,14 +238,7 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
         code, msg = _STATUS_MAP.get(st, (4, st.name))
         # Un-pad the lane back to the instance's true standard-form dims.
         m_i, n_i = dats[lane][0].shape
-        pt_i = SimpleNamespace(
-            x=out.pt.x[pos, :n_i], zl=out.pt.zl[pos, :n_i],
-            zu=out.pt.zu[pos, :n_i], y=out.pt.y[pos, :m_i],
-            tau=out.pt.tau[pos])
-        state_i = SimpleNamespace(
-            pt=pt_i, primal_status=out.primal_status[pos],
-            dual_status=out.dual_status[pos], pobj=out.pobj[pos],
-            dobj=out.dobj[pos])
+        state_i = _host_lane(out, pos, m_i, n_i)
         if ps is not None:
             sol_inner = Solution(pb_.ncon, pb_.nvar)
             _extract_solution(sol_inner, pb_, state_i, n_struct)
