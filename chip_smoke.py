@@ -6,22 +6,35 @@ Phases, each of which exits non-zero on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (nvidia-smi), torch's and CUDA's versions;
-2. build: compiles ``tulip_tpu_torch/csrc/chol_inv.cu`` and
-   ``csrc/scaled_gram.cu`` (one nvcc each, started together) and the C++
-   host engines of ``native/`` (``make -C native``) from the checkout;
+2. build: compiles ``tulip_tpu_torch/csrc/chol_inv.cu``,
+   ``csrc/scaled_gram.cu`` and ``csrc/fused_solve.cu`` (one nvcc each,
+   started together) and the C++ host engines of ``native/``
+   (``make -C native``) from the checkout;
 3. kernel: the chol-inv kernel against its plain PyTorch version on SPD
    batches, a non-SPD lane, and kernel vs plain time at (2048, 48),
-   (2048, 64) and (1, 1024);
+   (2048, 64) and (1, 1024); the packed launch (p instances per block) at
+   (2048, 48) with p = 2, 4 and (2048, 64) with p = 2 against the plain
+   version and kernel 1, a non-SPD lane inside a packed block, and its time
+   beside kernel 1's;
 3b. kernel: the scaled-Gram kernel against its plain version at four
    shapes up to (1, 4096, 6240), and kernel vs plain time there;
+3c. kernel: the fused K1 solve against its plain version at (2048, 48, 96),
+   (7, 48, 96), (4, 256, 512), (1, 1024, 2048) and (2, 64, 8192) (its
+   n-long vectors in device memory), refine 0 (three seeds, held against
+   the plain version in f64) and 1 (against it in f32 and in f64), and
+   kernel vs plain time at (2048, 48, 96), refine 1;
 4. slice: the batched f32 HSD solve of the repository's benchmark
    instances (2048 random 48x96 LPs, seed 0, tolerance 3e-4) through
    ``SmallK1Backend``: every lane OPTIMAL, objectives of 128 lanes against
    scipy's HiGHS, solves/s and mean iterations;
+4b. slice: the same solve through ``SmallK1Backend(fused_solve=True)``
+   (the fused solve kernel), with the same checks;
 5. entry: ``batch_linprog`` at its defaults (f32, presolve) on 64 mixed
    problems in two shape buckets (one with m >= 200), with inequality rows,
    free variables, an infeasible and an unbounded instance; statuses and
    objectives against HiGHS;
+5b. entry: the same through the fused backend; the m = 256 bucket runs the
+   fused kernel's device-memory path;
 6. single LP: ``Model.optimize()`` on the 64-stage staircase
    ``multiperiod_lp(4096)`` (m = 4096, n = 6240) in f32 through
    ``KKT_Backend="dense-pallas"`` (the scaled-Gram kernel), presolve on:
@@ -29,14 +42,28 @@ Phases, each of which exits non-zero on a failed check:
    ``"dense"`` (cuBLAS + cuSOLVER) for its wall;
 7. single-LP entry at defaults: the CLI on ``tests/data/*.mps`` (f64) and
    ``Model.optimize()`` on ``multiperiod_lp(1024)`` in f64 (``"dense"``)
-   and in f32 (``"pallas-small"``, the chol-inv kernel at B = 1).
+   and in f32 (``"pallas-small"``, the chol-inv kernel at B = 1);
+8. MPC: ``batch_linprog(algorithm="MPC")`` at its defaults on the 64
+   problems of phase 5 (statuses as the JAX package gives them on the CPU,
+   objectives against HiGHS), ``Model`` with ``IPM_Algorithm="MPC"`` on
+   ``multiperiod_lp(1024)`` in f64, and the CLI's ``--Method MPC`` on
+   ``tests/data/*.mps``;
+9. warm re-solve: ``b`` of the 2048 slice instances perturbed by 1%
+   (seeded), re-solved by ``batched_hsd_resolve`` from phase 4b's final
+   state through the fused backend with the packed chol-inv launch (4
+   instances per block), against a cold solve;
+10. kernels at the main path's shapes: every (B, m, n, refine) that phases
+   4-9 gave the fused solve and every (B, m, instances per block) they gave
+   the chol-inv kernel, held against the plain version on seeded inputs of
+   that shape with phase 3's and 3c's bars.
 
-Phases 4-5, 6 and 7 are the main path: each kernel's launch count is reset
-just before each of them and read just after. The last two lines are a
-JSON list of the kernels with their launches, errors and times, and the
-JSON result ``{"ok": true, "device": {...}}``. ``--profile DIR`` also
-writes torch.profiler tables of one warm slice solve and of the phase-6
-solve to DIR.
+Phases 4-9 are the main path: every kernel's launch count is reset just
+before each of them and read just after. The last lines are the card's
+name and power limit, a JSON list of the kernels with their launches,
+errors, times and bounds, and the JSON result
+``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
+torch.profiler tables of one warm slice solve (phases 4 and 4b) and of
+the phase-6 solve to DIR.
 """
 
 from __future__ import annotations
@@ -62,6 +89,22 @@ TIMED_SHAPES = [(2048, 48), (2048, 64), (1, 1024)]
 GRAM_SHAPES = [(1, 37, 200), (3, 300, 520), (2, 1000, 1500),
                (1, 4096, 6240)]
 GRAM_TIMED = (1, 4096, 6240)
+PACKED_SHAPES = [(2048, 48, 2), (2048, 48, 4), (2048, 64, 2)]
+# Instances per block of the packed chol-inv launch on the main path
+# (phase 9).
+PACK = 4
+FUSED_SHAPES = [(2048, 48, 96), (7, 48, 96), (4, 256, 512), (1, 1024, 2048),
+                (2, 64, 8192)]
+FUSED_TIMED = (2048, 48, 96)
+# JAX package's batch_linprog(algorithm="MPC") at its defaults (f32) on the
+# 64 problems of entry_problems, on the CPU: 62 OPTIMAL, the infeasible
+# instance NUMERICAL_PROBLEM, the unbounded one DUAL_INFEASIBLE (decided by
+# presolve). scipy codes: 0 optimal, 4 numerical, 3 unbounded.
+MPC_ENTRY_STATUS = [0] * 62 + [4, 3]
+# NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
+# memory bandwidth, and float32 outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -98,6 +141,35 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(ts)
 
 
+def bound_ms(nbytes, flops):
+    """(least time in ms, what bounds it): the bytes the function must
+    move over the memory rate, or its float32 operations over the peak
+    rate outside the tensor cores, whichever is larger."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def chol_bound(B, m):
+    """K read and L⁻¹ written in full (f32); ⅔m³ operations an instance
+    (Cholesky m³/3, triangular inverse m³/3)."""
+    return bound_ms(2 * B * m * m * 4, B * 2 * m ** 3 / 3)
+
+
+def fused_bound(B, m, n, refine):
+    """A, the lower triangle of L⁻¹ and the five input vectors read, dx and
+    dy written; the products' multiply-adds and the elementwise steps."""
+    nbytes = B * (m * n + m * (m + 1) // 2 + 3 * n + 2 * m + n + m) * 4
+    base = 4 * m * n + 2 * m * (m + 1) + 3 * n + m
+    sweep = 2 * m * n + 5 * n + 4 * m
+    return bound_ms(nbytes, B * ((1 + refine) * base + refine * sweep))
+
+
+def gram_bound(B, m, n):
+    """A and d read, K written; the lower half m(m+1)n of 2m²n operations,
+    since K is symmetric."""
+    return bound_ms(B * (m * n + n + m * m) * 4, B * m * (m + 1) * n)
+
+
 def make_raw_instances(nb, m, n, seed=0):
     """The benchmark's instances (bench.py:make_raw_instances): random
     feasible standard-form LPs, b = A x0 for x0 inside [0, u]."""
@@ -123,31 +195,37 @@ def highs(c, method="highs", **kw):
 # Phase 3: kernel against plain version
 # ---------------------------------------------------------------------------
 
+def hold_chol(B, m, pack, seed, device):
+    """The chol-inv kernel (``pack`` instances per block) against its
+    plain version on an SPD batch; returns max|kernel − plain|."""
+    from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
+                                          batched_cholesky_inverse_plain)
+
+    K = spd_batch(B, m, seed=seed, device=device)
+    got = batched_cholesky_inverse(K, pack=pack)
+    want = batched_cholesky_inverse_plain(K)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.triu(got, 1), torch.zeros_like(got)),
+          f"nonzero above the diagonal at (B, m, pack) = ({B}, {m}, {pack})")
+    abs_err = (got - want).abs().max().item()
+    rel = (torch.linalg.matrix_norm(got - want)
+           / torch.linalg.matrix_norm(want)).max().item()
+    log(f"  chol_inv (B={B:5d}, m={m:5d}, pack {pack}): max|kernel-plain| "
+        f"{abs_err:.3e}  max rel Frobenius {rel:.3e}")
+    # f32 with a different summation order and FMA: an absolute bar for
+    # m <= 100, a relative one above, where L⁻¹ spans more magnitudes.
+    if m <= 100:
+        check(abs_err <= 1e-4, f"max abs err {abs_err} at ({B}, {m}, {pack})")
+    else:
+        check(rel <= 1e-4, f"rel Frobenius err {rel} at ({B}, {m}, {pack})")
+    return abs_err
+
+
 def phase_kernel(device):
     from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                           batched_cholesky_inverse_plain)
 
-    errs = {}
-    for B, m in KERNEL_SHAPES:
-        K = spd_batch(B, m, seed=0, device=device)
-        got = batched_cholesky_inverse(K)
-        want = batched_cholesky_inverse_plain(K)
-        torch.cuda.synchronize()
-        check(torch.equal(torch.triu(got, 1), torch.zeros_like(got)),
-              f"nonzero above the diagonal at (B, m) = ({B}, {m})")
-        abs_err = (got - want).abs().max().item()
-        rel = (torch.linalg.matrix_norm(got - want)
-               / torch.linalg.matrix_norm(want)).max().item()
-        errs[(B, m)] = abs_err
-        log(f"  chol_inv (B={B:5d}, m={m:5d}): max|kernel-plain| "
-            f"{abs_err:.3e}  max rel Frobenius {rel:.3e}")
-        # f32 with a different summation order and FMA: an absolute bar
-        # for m <= 100, a relative one above, where L⁻¹ spans more
-        # magnitudes.
-        if m <= 100:
-            check(abs_err <= 1e-4, f"max abs err {abs_err} at ({B}, {m})")
-        else:
-            check(rel <= 1e-4, f"rel Frobenius err {rel} at ({B}, {m})")
+    errs = {(B, m): hold_chol(B, m, 0, 0, device) for B, m in KERNEL_SHAPES}
 
     K = spd_batch(7, 48, seed=1, device=device)
     K[3] = -K[3]
@@ -162,9 +240,153 @@ def phase_kernel(device):
         tk = time_ms(lambda: batched_cholesky_inverse(K))
         tp = time_ms(lambda: batched_cholesky_inverse_plain(K))
         times[(B, m)] = (tk, tp)
+        bound, by = chol_bound(B, m)
         log(f"  time (B={B}, m={m}): kernel {tk:.4f} ms, plain "
-            f"(cholesky_ex + solve_triangular) {tp:.4f} ms, median of 20")
+            f"(cholesky_ex + solve_triangular) {tp:.4f} ms, median of 20; "
+            f"bound {bound:.4f} ms ({by}), kernel at {bound / tk:.4f} of it")
     return errs, times
+
+
+def phase_packed(device):
+    """The packed launch against the plain version and kernel 1 (the same
+    arithmetic per instance, so the same bits), a non-SPD lane inside a
+    packed block, and its time beside kernel 1's at the same shape."""
+    from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
+                                          batched_cholesky_inverse_plain)
+
+    out = {}
+    for B, m, p in PACKED_SHAPES:
+        K = spd_batch(B, m, seed=3, device=device)
+        got = batched_cholesky_inverse(K, pack=p)
+        one = batched_cholesky_inverse(K)
+        want = batched_cholesky_inverse_plain(K)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        vs_one = (got - one).abs().max().item()
+        check(err <= 1e-4, f"packed chol_inv p={p} at ({B}, {m}): max err "
+              f"{err} vs plain")
+        check(torch.equal(torch.triu(got, 1), torch.zeros_like(got)),
+              f"packed chol_inv p={p}: nonzero above the diagonal")
+        tpk = time_ms(lambda: batched_cholesky_inverse(K, pack=p))
+        tk = time_ms(lambda: batched_cholesky_inverse(K))
+        tp = time_ms(lambda: batched_cholesky_inverse_plain(K))
+        out[(B, m, p)] = (err, tpk, tk, tp)
+        bound, by = chol_bound(B, m)
+        log(f"  packed p={p} (B={B}, m={m}): max|packed-plain| {err:.3e}, "
+            f"max|packed-unpacked| {vs_one:.3e}; packed {tpk:.4f} ms, "
+            f"unpacked {tk:.4f} ms, plain {tp:.4f} ms, median of 20; bound "
+            f"{bound:.4f} ms ({by}), packed at {bound / tpk:.4f} of it")
+    K = spd_batch(8, 48, seed=4, device=device)
+    K[5] = -K[5]
+    finite = torch.isfinite(batched_cholesky_inverse(K, pack=4)) \
+        .all(-1).all(-1)
+    check(finite.tolist() == [True] * 5 + [False] + [True] * 2,
+          f"packed non-SPD lane 5: finite lanes {finite.tolist()}")
+    log("  packed non-SPD lane: non-finite in that lane only")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: fused K1 solve kernel against plain version
+# ---------------------------------------------------------------------------
+
+def fused_inputs(B, m, n, seed, device):
+    """treg spanning 10^±2, regD 1e-4, Li = L⁻¹ of K = A diag(1/treg) Aᵀ +
+    diag(regD) (the plain chol-inv in f64), random right-hand sides: the
+    inputs of tests/test_pallas_ops.py:91-122."""
+    from tulip_tpu_torch.ops.chol import batched_cholesky_inverse_plain
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    A = t(rng.standard_normal((B, m, n)))
+    treg = t(10.0 ** rng.uniform(-2, 2, (B, n)))
+    d = 1.0 / treg
+    regD = torch.full((B, m), 1e-4, device=device)
+    xi_p = t(rng.standard_normal((B, m)))
+    xi_d = t(rng.standard_normal((B, n)))
+    A64 = A.double()
+    K = ((A64 * d.double()[:, None, :]) @ A64.transpose(1, 2)
+         + torch.diag_embed(regD.double()))
+    Li = batched_cholesky_inverse_plain(K).float()
+    return A, Li, d, treg, regD, xi_p, xi_d
+
+
+def hold_fused(B, m, n, refine, seeds, device):
+    """The fused solve kernel against its plain version on seeded inputs of
+    one shape; returns max|kernel − plain f32|. Errors are per lane, over
+    max(1, max|exact|), where exact is the plain version in f64 on the same
+    inputs. With a sweep, the kernel is held within 1e-4 of the plain
+    version in f32 and of exact. Without one, the factor's conditioning
+    (treg spans 10^±2, regD 1e-4) puts each f32 implementation up to ~1e-4
+    from exact over thousands of lanes, so no fixed bar near that is safe:
+    the kernel's worst lane is held within twice the plain f32 version's
+    worst lane (+1e-6) of exact. A wrong kernel is off by O(1)."""
+    from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
+                                           batched_fused_k1_solve_plain)
+
+    rel, abs_err = [0.0, 0.0, 0.0], 0.0
+    for seed in seeds:
+        args = fused_inputs(B, m, n, seed=seed, device=device)
+        got = batched_fused_k1_solve(*args, refine=refine)
+        want = batched_fused_k1_solve_plain(*args, refine=refine)
+        exact = batched_fused_k1_solve_plain(*[a.double() for a in args],
+                                             refine=refine)
+        torch.cuda.synchronize()
+        for g, w, e in zip(got, want, exact):
+            scale = e.abs().amax(-1).clamp_min(1.0)
+            for k, (x, y) in enumerate([(g, w), (g, e), (w, e)]):
+                rel[k] = max(rel[k], ((x.double() - y).abs().amax(-1)
+                                      / scale).max().item())
+            abs_err = max(abs_err, (g - w).abs().max().item())
+    log(f"  fused_k1_solve (B={B}, m={m}, n={n}, refine {refine}, "
+        f"{len(seeds)} seed(s)): max|kernel-plain| {abs_err:.3e}; per lane "
+        f"/ max(1, max|exact|): kernel-plain {rel[0]:.3e}, kernel-exact "
+        f"{rel[1]:.3e}, plain-exact {rel[2]:.3e} (exact = the plain version "
+        f"in f64)")
+    if refine:
+        check(rel[0] <= 1e-4 and rel[1] <= 1e-4, f"fused_k1_solve error "
+              f"{rel[:2]} at {(B, m, n, refine)}")
+    else:
+        check(rel[1] <= 2 * rel[2] + 1e-6, f"fused_k1_solve error to the "
+              f"f64 plain version {rel[1]}, plain f32's {rel[2]}, at "
+              f"{(B, m, n, refine)}")
+    return abs_err
+
+
+def phase_fused(device):
+    from tulip_tpu_torch.ops import solve
+    from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
+                                           batched_fused_k1_solve_plain)
+
+    errs = {}
+    wide = solve.WIDE_LAUNCHES
+    for B, m, n in FUSED_SHAPES:
+        for refine in (0, 1):
+            seeds = [m + refine] if refine else [m, m + 100, m + 200]
+            errs[(B, m, n, refine)] = hold_fused(B, m, n, refine, seeds,
+                                                 device)
+    check(solve.WIDE_LAUNCHES > wide, "fused_k1_solve: the layout with the "
+          "n-long vectors in device memory never ran")
+    args = fused_inputs(6, 48, 96, seed=5, device=device)
+    args[0][2, 5, 7] = float("nan")
+    dx, dy = batched_fused_k1_solve(*args, refine=1)
+    ok = (torch.isfinite(dx).all(-1) & torch.isfinite(dy).all(-1)).tolist()
+    check(ok == [True, True, False, True, True, True],
+          f"fused non-finite lane 2: finite lanes {ok}")
+    log("  non-finite lane: non-finite output in that lane only")
+
+    B, m, n = FUSED_TIMED
+    args = fused_inputs(B, m, n, seed=6, device=device)
+    tk = time_ms(lambda: batched_fused_k1_solve(*args, refine=1))
+    tp = time_ms(lambda: batched_fused_k1_solve_plain(*args, refine=1))
+    bound, by = fused_bound(B, m, n, 1)
+    log(f"  time {FUSED_TIMED}, refine 1: kernel {tk:.4f} ms, plain (the "
+        f"bmm chain) {tp:.4f} ms, median of 20; bound {bound:.4f} ms ({by}), "
+        f"kernel at {bound / tk:.4f} of it")
+    return errs, (tk, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +429,17 @@ def phase_gram(device):
     A, d = gram_inputs(B, m, n, seed=5, device=device)
     tk = time_ms(lambda: scaled_gram(A, d))
     tp = time_ms(lambda: scaled_gram_plain(A, d))
+    # One library call computing the same function of the same inputs.
+    tl = time_ms(lambda: torch.einsum("bik,bk,bjk->bij", A, d, A))
     full = 2.0 * B * m * m * n
+    bound, by = gram_bound(B, m, n)
     log(f"  time {GRAM_TIMED}: kernel {tk:.4f} ms, plain ((A*d) @ A^T, "
-        f"cuBLAS f32) {tp:.4f} ms, median of 20; 2*m^2*n = {full:.4e} FLOP "
-        f"-> kernel {full / tk / 1e9:.3f}, plain {full / tp / 1e9:.3f} "
-        f"TFLOP/s (the kernel computes the lower tiles only, "
-        f"{full / 2 / tk / 1e9:.3f} TFLOP/s of its own work)")
-    return errs, (tk, tp)
+        f"cuBLAS f32) {tp:.4f} ms, library (one einsum) {tl:.4f} ms, median "
+        f"of 20; 2*m^2*n = {full:.4e} FLOP -> kernel {full / tk / 1e9:.3f}, "
+        f"plain {full / tp / 1e9:.3f} TFLOP/s (the kernel computes the lower "
+        f"tiles only, {full / 2 / tk / 1e9:.3f} TFLOP/s of its own work); "
+        f"bound {bound:.4f} ms ({by}), kernel at {bound / tk:.4f} of it")
+    return errs, (tk, tp, tl)
 
 
 # ---------------------------------------------------------------------------
@@ -292,14 +518,14 @@ def describe(mod, wall):
             f"{mod.timings['ipm'] / max(it, 1) * 1e3:.3f} ms per iteration")
 
 
-def run_cli(path, device):
-    """The CLI's ``main`` at its defaults; returns (rc, objective or None,
-    iteration-log rows)."""
+def run_cli(path, device, *flags):
+    """The CLI's ``main`` at its defaults and ``flags``; returns (rc,
+    objective or None, iteration-log rows)."""
     from tulip_tpu_torch import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main([path], device=device)
+        rc = cli.main([*flags, path], device=device)
     out = buf.getvalue()
     z = None
     for line in out.splitlines():
@@ -363,36 +589,54 @@ def entry_problems(rng):
     return probs
 
 
-def check_slice(raws, out, n_ref):
-    st = out.status.cpu().numpy()
-    n_opt = int((st == OPTIMAL).sum())
-    check(n_opt == len(raws), f"slice: {n_opt}/{len(raws)} lanes OPTIMAL")
-    pobj = out.pobj.cpu().numpy()
-    worst = 0.0
+def highs_slice(raws, n_ref):
+    """HiGHS's objectives of the first ``n_ref`` slice instances."""
+    refs = []
     for k in range(min(n_ref, len(raws))):
         A, b, c, u = raws[k]
         r = highs(c, A_eq=A, b_eq=b, bounds=[(0, ub) for ub in u])
         check(r.status == 0, f"HiGHS failed on lane {k}")
-        err = abs(pobj[k] - r.fun) / max(1.0, abs(r.fun))
+        refs.append(float(r.fun))
+    return refs
+
+
+def check_slice(raws, out, refs, what="slice"):
+    """Every lane OPTIMAL, and the lanes with a HiGHS objective in
+    ``refs`` within 1e-2·max(1, |f|) of it; returns (OPTIMAL lanes, worst
+    relative error)."""
+    st = out.status.cpu().numpy()
+    n_opt = int((st == OPTIMAL).sum())
+    check(n_opt == len(raws), f"{what}: {n_opt}/{len(raws)} lanes OPTIMAL")
+    pobj = out.pobj.cpu().numpy()
+    worst = 0.0
+    for k, ref in enumerate(refs):
+        err = abs(pobj[k] - ref) / max(1.0, abs(ref))
         worst = max(worst, err)
-        check(err <= 1e-2, f"slice lane {k}: pobj {pobj[k]} vs HiGHS {r.fun}")
+        check(err <= 1e-2, f"{what} lane {k}: pobj {pobj[k]} vs HiGHS {ref}")
     return n_opt, worst
 
 
-def check_entry(probs, res):
+def highs_entry(probs):
+    return [highs(p["c"], A_ub=p.get("A_ub"), b_ub=p.get("b_ub"),
+                  A_eq=p.get("A_eq"), b_eq=p.get("b_eq"),
+                  bounds=p.get("bounds", (0, None))) for p in probs]
+
+
+def check_entry(probs, res, refs=None, statuses=None, what="entry"):
+    """Statuses equal to HiGHS's (or to ``statuses``), and OPTIMAL lanes'
+    objectives within 1e-2·max(1, |f|) of HiGHS's; returns the worst
+    relative error."""
+    refs = refs or highs_entry(probs)
     worst = 0.0
-    for k, (p, r) in enumerate(zip(probs, res)):
-        ref = highs(p["c"], A_ub=p.get("A_ub"), b_ub=p.get("b_ub"),
-                    A_eq=p.get("A_eq"), b_eq=p.get("b_eq"),
-                    bounds=p.get("bounds", (0, None)))
-        check(r.status == ref.status,
-              f"entry problem {k}: status {r.status} ({r.message}) vs "
-              f"HiGHS {ref.status}")
-        if ref.status == 0:
+    for k, (r, ref) in enumerate(zip(res, refs)):
+        want = ref.status if statuses is None else statuses[k]
+        check(r.status == want, f"{what} problem {k}: status {r.status} "
+              f"({r.message}) vs {want}")
+        if r.status == 0:
             err = abs(r.fun - ref.fun) / max(1.0, abs(ref.fun))
             worst = max(worst, err)
             check(err <= 1e-2,
-                  f"entry problem {k}: fun {r.fun} vs HiGHS {ref.fun}")
+                  f"{what} problem {k}: fun {r.fun} vs HiGHS {ref.fun}")
     return worst
 
 
@@ -423,6 +667,56 @@ def profile_solve(solve, path, wall_s):
     return busy_ms
 
 
+COUNTERS = {"chol_inv": ("chol", "KERNEL_LAUNCHES"),
+            "chol_inv_packed": ("chol", "KERNEL_LAUNCHES_PACKED"),
+            "fused_k1_solve": ("solve", "KERNEL_LAUNCHES"),
+            "scaled_gram": ("gram", "KERNEL_LAUNCHES")}
+
+
+class Launches:
+    """Kernel launch counts of the main path: :meth:`phase` sets every
+    count to 0 just before a phase and adds them to the totals just after."""
+
+    def __init__(self):
+        from tulip_tpu_torch.ops import chol, gram, solve
+
+        self.mods = {"chol": chol, "gram": gram, "solve": solve}
+        self.total = dict.fromkeys(COUNTERS, 0)
+        self.streamed = 0
+        # Shapes the main path gave the chol-inv and fused solve kernels.
+        self.shapes = {"chol": set(), "solve": set()}
+
+    @contextlib.contextmanager
+    def phase(self):
+        torch.cuda.synchronize()
+        for mod, attr in COUNTERS.values():
+            setattr(self.mods[mod], attr, 0)
+        self.mods["solve"].STREAMED_LAUNCHES = 0
+        for mod in self.shapes:
+            self.mods[mod].SHAPES.clear()
+        got = {}
+        yield got
+        torch.cuda.synchronize()
+        for name, (mod, attr) in COUNTERS.items():
+            got[name] = getattr(self.mods[mod], attr)
+            self.total[name] += got[name]
+        got["streamed"] = self.mods["solve"].STREAMED_LAUNCHES
+        self.streamed += got["streamed"]
+        for mod, seen in self.shapes.items():
+            seen |= self.mods[mod].SHAPES
+
+
+def timed_solves(solve, reps):
+    """Walls of ``reps`` solves, each ending in a device→host copy of the
+    statuses."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        solve().status.cpu()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -433,9 +727,9 @@ def main(argv=None):
     # -- 1. device ---------------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
     from tulip_tpu_torch import _build, batch_linprog
-    from tulip_tpu_torch.ipm.batch import batched_hsd_solve
+    from tulip_tpu_torch.ipm.batch import (batched_hsd_resolve,
+                                           batched_hsd_solve, stack_lps_host)
     from tulip_tpu_torch.kkt import DenseK1Backend, SmallK1Backend
-    from tulip_tpu_torch.ops import chol, gram
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -445,13 +739,13 @@ def main(argv=None):
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     check(smi.returncode == 0 and card, f"nvidia-smi failed: {smi.stderr}")
     log(f"[1] device: {torch.cuda.get_device_name(0)}; torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
+        f"{torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         libs = {name: ex.submit(_build.build, name)
-                for name in ("chol_inv", "scaled_gram")}
+                for name in ("chol_inv", "scaled_gram", "fused_solve")}
         make = ex.submit(subprocess.run, ["make", "-C",
                                           os.path.join(ROOT, "native")],
                          capture_output=True, text=True, timeout=600)
@@ -470,51 +764,45 @@ def main(argv=None):
         ptxas = lib.with_name(lib.name + ".log")
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "Used" in line or "spill" in line:
+                if "Compiling entry" in line or "Used" in line \
+                        or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
-    # -- 3. kernel vs plain ------------------------------------------------
-    log("[3] kernel vs plain version")
+    # -- 3. kernels vs plain -----------------------------------------------
+    log("[3] chol_inv kernel vs plain version")
     errs, times = phase_kernel(device)
+    packed = phase_packed(device)
     log("[3b] scaled_gram kernel vs plain version")
     gram_errs, gram_times = phase_gram(device)
+    log("[3c] fused_k1_solve kernel vs plain version")
+    fused_errs, fused_times = phase_fused(device)
 
-    # -- 4 + 5. the main path, counted -------------------------------------
+    count = Launches()
     raws, dats, opts = slice_inputs(device, 2048)
+    refs_slice = highs_slice(raws, 128)
     probs = entry_problems(np.random.default_rng(1))
-    backend = SmallK1Backend(refinement_steps=1)
-    torch.cuda.synchronize()
-    chol.KERNEL_LAUNCHES = 0
-    t0 = time.perf_counter()
-    out = batched_hsd_solve(backend, opts, dats)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches_slice = chol.KERNEL_LAUNCHES
-    res = batch_linprog(probs)
-    launches = chol.KERNEL_LAUNCHES
-    check(launches_slice > 0, "slice: the chol-inv kernel never launched")
-    check(launches > launches_slice,
-          "entry: the chol-inv kernel never launched")
+    refs_entry = highs_entry(probs)
 
+    # -- 4. the slice, counted ---------------------------------------------
+    backend = SmallK1Backend(refinement_steps=1)
+    with count.phase() as n4:
+        t0 = time.perf_counter()
+        out = batched_hsd_solve(backend, opts, dats)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    check(n4["chol_inv"] > 0, "slice: the chol-inv kernel never launched")
     log(f"[4] slice: B={len(raws)} 48x96 f32 tol {TOL}, first solve "
-        f"{t_first:.3f} s, {launches_slice} kernel launches")
-    n_opt, worst = check_slice(raws, out, n_ref=128)
+        f"{t_first:.3f} s, launches {n4}")
+    n_opt, worst = check_slice(raws, out, refs_slice)
     iters = out.niter.cpu().numpy()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        batched_hsd_solve(backend, opts, dats).status.cpu()
-        walls.append(time.perf_counter() - t0)
-    plain_walls = []
+    wall = statistics.median(timed_solves(
+        lambda: batched_hsd_solve(backend, opts, dats), 5))
     plain = DenseK1Backend(inv_factor=True, refinement_steps=1)
-    for _ in range(3):
-        t0 = time.perf_counter()
-        o = batched_hsd_solve(plain, opts, dats)
-        o.status.cpu()
-        plain_walls.append(time.perf_counter() - t0)
+    o = batched_hsd_solve(plain, opts, dats)
     check(bool((o.status == OPTIMAL).all()), "slice with the plain backend: "
           "not every lane OPTIMAL")
-    wall, pwall = statistics.median(walls), statistics.median(plain_walls)
+    pwall = statistics.median(timed_solves(
+        lambda: batched_hsd_solve(plain, opts, dats), 3))
     log(f"  {n_opt}/{len(raws)} OPTIMAL, mean iterations {iters.mean():.4f} "
         f"(max {iters.max()}), worst rel obj err vs HiGHS (128 lanes) "
         f"{worst:.3e}")
@@ -526,22 +814,55 @@ def main(argv=None):
         profile_solve(lambda: batched_hsd_solve(backend, opts, dats),
                       os.path.join(args.profile, "profile_slice.txt"), wall)
 
-    worst_e = check_entry(probs, res)
+    # -- 4b. the slice through the fused solve, counted --------------------
+    fused = SmallK1Backend(refinement_steps=1, fused_solve=True)
+    with count.phase() as n4b:
+        t0 = time.perf_counter()
+        out_f = batched_hsd_solve(fused, opts, dats)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    check(n4b["fused_k1_solve"] > 0,
+          "fused slice: the fused solve kernel never launched")
+    n_opt_f, worst_f = check_slice(raws, out_f, refs_slice, "fused slice")
+    iters_f = out_f.niter.cpu().numpy()
+    wall_f = statistics.median(timed_solves(
+        lambda: batched_hsd_solve(fused, opts, dats), 5))
+    log(f"[4b] fused slice: first solve {t_first:.3f} s, launches {n4b}; "
+        f"{n_opt_f}/{len(raws)} OPTIMAL, mean iterations "
+        f"{iters_f.mean():.4f} (max {iters_f.max()}), worst rel obj err vs "
+        f"HiGHS (128 lanes) {worst_f:.3e}")
+    log(f"  wall median of 5: {wall_f:.4f} s = {len(raws) / wall_f:.2f} "
+        f"solves/s, beside phase 4's {len(raws) / wall:.2f} solves/s")
+    if args.profile:
+        profile_solve(lambda: batched_hsd_solve(fused, opts, dats),
+                      os.path.join(args.profile, "profile_slice_fused.txt"),
+                      wall_f)
+
+    # -- 5 + 5b. batch_linprog, counted ------------------------------------
+    with count.phase() as n5:
+        res = batch_linprog(probs)
+    check(n5["chol_inv"] > 0, "entry: the chol-inv kernel never launched")
+    worst_e = check_entry(probs, res, refs_entry)
     log(f"[5] entry: batch_linprog on {len(probs)} problems, statuses match "
-        f"HiGHS, worst rel obj err {worst_e:.3e}; "
-        f"{launches - launches_slice} kernel launches")
+        f"HiGHS, worst rel obj err {worst_e:.3e}; launches {n5}")
+    with count.phase() as n5b:
+        res_f = batch_linprog(probs, backend=fused)
+    check(n5b["fused_k1_solve"] > 0 and n5b["streamed"] > 0,
+          f"fused entry: the fused kernel's device-memory path did not run "
+          f"({n5b})")
+    worst_ef = check_entry(probs, res_f, refs_entry, what="fused entry")
+    log(f"[5b] fused entry: statuses match HiGHS, worst rel obj err "
+        f"{worst_ef:.3e}; launches {n5b} ({n5b['streamed']} read A and L⁻¹ "
+        f"from device memory: the m = 256 bucket)")
 
     # -- 6. one LP through dense-pallas, counted ---------------------------
     big = staircase_lp(4096)
     ref_big = highs_staircase(*big)
     mod = staircase_model(big, device, "float32", "dense-pallas")
-    torch.cuda.synchronize()
-    gram.KERNEL_LAUNCHES = 0
-    st, z, wall = solve_model(mod)
-    torch.cuda.synchronize()
-    launches_gram = gram.KERNEL_LAUNCHES
+    with count.phase() as n6:
+        st, z, wall6 = solve_model(mod)
     check(st.name == "OPTIMAL", f"single LP (dense-pallas): status {st.name}")
-    check(launches_gram > 0, "single LP: the scaled_gram kernel never "
+    check(n6["scaled_gram"] > 0, "single LP: the scaled_gram kernel never "
           "launched")
     check(mod.kkt_backend.name == "dense-pallas",
           f"single LP ran backend {mod.kkt_backend.name!r}")
@@ -549,7 +870,7 @@ def main(argv=None):
     log(f"[6] single LP: multiperiod_lp(4096), m={big[0].shape[0]}, "
         f"n={big[0].shape[1]}, f32 dense-pallas, presolve on: OPTIMAL, "
         f"objective {z!r} vs HiGHS {ref_big!r} (rel {err:.3e}); "
-        f"{describe(mod, wall)}; {launches_gram} scaled_gram launches")
+        f"{describe(mod, wall6)}; launches {n6}")
     mod_d = staircase_model(big, device, "float32", "dense")
     st_d, z_d, wall_d = solve_model(mod_d)
     check(st_d.name == "OPTIMAL", f"single LP (dense f32): {st_d.name}")
@@ -558,66 +879,139 @@ def main(argv=None):
     if args.profile:
         profile_solve(lambda: mod.optimize(),
                       os.path.join(args.profile, "profile_single_lp.txt"),
-                      wall)
+                      wall6)
 
     # -- 7. single-LP entry at defaults, counted ---------------------------
-    chol.KERNEL_LAUNCHES = 0
     want = {"lp_opt": (0, 1.5), "lp_inf": (1, None), "lp_ubd": (1, None),
             "lp_freevars": (0, 0.0)}
-    for name, (rc_want, z_want) in want.items():
-        rc, zc, rows = run_cli(os.path.join(ROOT, "tests", "data",
-                                            f"{name}.mps"), device)
-        check(rc == rc_want, f"cli {name}: rc {rc}, expected {rc_want}")
-        if z_want is not None:
-            check(zc is not None and abs(zc - z_want) <= 1e-6,
-                  f"cli {name}: objective {zc}, expected {z_want}")
-        log(f"[7] cli {name}.mps (f64 default): rc {rc}, objective {zc!r}, "
-            f"{rows} iteration-log rows")
     small = staircase_lp(1024)
     ref_small = highs_staircase(*small)
-    mod64 = staircase_model(small, device, "float64")
-    st64, z64, wall64 = solve_model(mod64)
+    with count.phase() as n7:
+        for name, (rc_want, z_want) in want.items():
+            rc, zc, rows = run_cli(os.path.join(ROOT, "tests", "data",
+                                                f"{name}.mps"), device)
+            check(rc == rc_want, f"cli {name}: rc {rc}, expected {rc_want}")
+            if z_want is not None:
+                check(zc is not None and abs(zc - z_want) <= 1e-6,
+                      f"cli {name}: objective {zc}, expected {z_want}")
+            log(f"[7] cli {name}.mps (f64 default): rc {rc}, objective "
+                f"{zc!r}, {rows} iteration-log rows")
+        mod64 = staircase_model(small, device, "float64")
+        st64, z64, wall64 = solve_model(mod64)
+        mod32 = staircase_model(small, device, "float32")
+        st32, z32, wall32 = solve_model(mod32)
     check(st64.name == "OPTIMAL", f"multiperiod_lp(1024) f64: {st64.name}")
     check(mod64.kkt_backend.name == "dense", "f64 default did not route to "
           f"'dense' but {mod64.kkt_backend.name!r}")
     err64 = check_objective("multiperiod_lp(1024) f64", z64, ref_small, 1e-6)
     log(f"  multiperiod_lp(1024) f64 default (dense): objective {z64!r} vs "
         f"HiGHS {ref_small!r} (rel {err64:.3e}); {describe(mod64, wall64)}")
-    mod32 = staircase_model(small, device, "float32")
-    st32, z32, wall32 = solve_model(mod32)
-    torch.cuda.synchronize()
-    launches_entry = chol.KERNEL_LAUNCHES
     check(st32.name == "OPTIMAL", f"multiperiod_lp(1024) f32: {st32.name}")
     check(mod32.kkt_backend.name == "pallas-small", "f32 default did not "
           f"route to 'pallas-small' but {mod32.kkt_backend.name!r}")
-    check(launches_entry > 0, "f32 default single LP: the chol-inv kernel "
+    check(n7["chol_inv"] > 0, "f32 default single LP: the chol-inv kernel "
           "never launched")
     err32 = check_objective("multiperiod_lp(1024) f32", z32, ref_small, 1e-3)
     log(f"  multiperiod_lp(1024) f32 default (pallas-small): objective "
         f"{z32!r} vs HiGHS (rel {err32:.3e}); {describe(mod32, wall32)}; "
-        f"{launches_entry} chol_inv launches")
+        f"launches {n7}")
+
+    # -- 8. MPC, counted ---------------------------------------------------
+    with count.phase() as n8:
+        res_m = batch_linprog(probs, algorithm="MPC")
+        mod_m = staircase_model(small, device, "float64")
+        mod_m.params.IPM.Algorithm = "MPC"
+        st_m, z_m, wall_m = solve_model(mod_m)
+        cli_m = {name: run_cli(os.path.join(ROOT, "tests", "data",
+                                            f"{name}.mps"), device,
+                               "--Method", "MPC")
+                 for name in want}
+    check(n8["chol_inv"] > 0, "MPC entry: the chol-inv kernel never launched")
+    worst_m = check_entry(probs, res_m, refs_entry, MPC_ENTRY_STATUS,
+                          what="MPC entry")
+    iters_m = [r.nit for r in res_m]
+    log(f"[8] MPC: batch_linprog(algorithm='MPC') on {len(probs)} problems, "
+        f"statuses as the JAX package's on the CPU, worst rel obj err vs "
+        f"HiGHS {worst_m:.3e}, mean iterations {np.mean(iters_m):.4f}; "
+        f"launches {n8}")
+    check(st_m.name == "OPTIMAL", f"multiperiod_lp(1024) f64 MPC: {st_m.name}")
+    err_m = check_objective("multiperiod_lp(1024) f64 MPC", z_m, ref_small,
+                            1e-6)
+    log(f"  multiperiod_lp(1024) f64 MPC (dense): objective {z_m!r} (rel "
+        f"{err_m:.3e}); {describe(mod_m, wall_m)}")
+    for name, (rc, zc, rows) in cli_m.items():
+        rc_want, z_want = want[name]
+        check(rc == rc_want, f"cli --Method MPC {name}: rc {rc}, expected "
+              f"{rc_want}")
+        if z_want is not None:
+            check(zc is not None and abs(zc - z_want) <= 1e-6,
+                  f"cli --Method MPC {name}: objective {zc}, expected "
+                  f"{z_want}")
+        log(f"  cli --Method MPC {name}.mps: rc {rc}, objective {zc!r}, "
+            f"{rows} iteration-log rows")
+
+    # -- 9. warm re-solve, counted -----------------------------------------
+    rng = np.random.default_rng(2)
+    raws2 = [(A, b * (1 + 0.01 * rng.standard_normal(len(b))), c, u)
+             for (A, b, c, u) in raws]
+    dats2 = stack_lps_host(
+        [(A, b, c, 0.0, np.zeros(len(c)), u) for (A, b, c, u) in raws2],
+        device=device, dtype=torch.float32)
+    warm_be = SmallK1Backend(refinement_steps=1, fused_solve=True, pack=PACK)
+    cold = batched_hsd_solve(fused, opts, dats2)
+    with count.phase() as n9:
+        t0 = time.perf_counter()
+        warm = batched_hsd_resolve(warm_be, opts, dats2, out_f)
+        torch.cuda.synchronize()
+        wall9 = time.perf_counter() - t0
+    check(n9["chol_inv_packed"] > 0 and n9["fused_k1_solve"] > 0,
+          f"warm re-solve: a kernel never launched ({n9})")
+    check(bool((warm.status == OPTIMAL).all()) and
+          bool((cold.status == OPTIMAL).all()),
+          "warm re-solve: not every lane OPTIMAL")
+    pw, pc = warm.pobj.cpu().numpy(), cold.pobj.cpu().numpy()
+    rel9 = np.abs(pw - pc) / np.maximum(1.0, np.abs(pc))
+    check(rel9.max() <= 1e-3, f"warm re-solve: objective off the cold "
+          f"solve's by {rel9.max()}")
+    log(f"[9] warm re-solve: b perturbed 1%, {len(raws2)}/{len(raws2)} "
+        f"OPTIMAL warm and cold, max rel obj diff {rel9.max():.3e}; mean "
+        f"iterations warm {warm.niter.double().mean().item():.4f}, cold "
+        f"{cold.niter.double().mean().item():.4f}; warm wall {wall9:.4f} s; "
+        f"launches {n9}")
+    for name in COUNTERS:
+        check(count.total[name] > 0, f"main path: {name} never launched")
+
+    # -- 10. the kernels at the main path's shapes -------------------------
+    log(f"[10] kernels at the main path's shapes: "
+        f"{sorted(count.shapes['solve'])} (fused, B m n refine), "
+        f"{sorted(count.shapes['chol'])} (chol-inv, B m per-block)")
+    for B, m, n, refine in sorted(count.shapes["solve"]):
+        hold_fused(B, m, n, refine, [B + m + n], device)
+    for B, m, p in sorted(count.shapes["chol"]):
+        hold_chol(B, m, p, B + m, device)
 
     tk, tp = times[(2048, 48)]
-    gk, gp = gram_times
-    kernels = [{
-        "name": "chol_inv",
-        "route": "cuda",
-        "source": "tulip_tpu_torch/csrc/chol_inv.cu",
-        "replaces": "tulip_tpu/ops/chol.py:42",
-        "launches": launches + launches_entry,
-        "max_abs_err": errs[(2048, 48)],
-        "ms": tk,
-        "plain_ms": tp,
-    }, {
-        "name": "scaled_gram",
-        "route": "cuda",
-        "source": "tulip_tpu_torch/csrc/scaled_gram.cu",
-        "replaces": "tulip_tpu/kkt/pallas_chol.py:36",
-        "launches": launches_gram,
-        "max_abs_err": gram_errs[GRAM_TIMED],
-        "ms": gk,
-        "plain_ms": gp,
-    }]
+    pk_err, pk_ms, _, pk_plain = packed[(2048, 48, PACK)]
+    gk, gp, gl = gram_times
+    fk, fp = fused_times
+    kernels = []
+    for name, src, repl, err_, ms, plain_ms, bound, lib in [
+            ("chol_inv", "chol_inv.cu", "tulip_tpu/ops/chol.py:42",
+             errs[(2048, 48)], tk, tp, chol_bound(2048, 48), None),
+            ("chol_inv_packed", "chol_inv.cu", "tulip_tpu/ops/chol.py:95",
+             pk_err, pk_ms, pk_plain, chol_bound(2048, 48), None),
+            ("fused_k1_solve", "fused_solve.cu", "tulip_tpu/ops/solve.py:34",
+             fused_errs[FUSED_TIMED + (1,)], fk, fp,
+             fused_bound(*FUSED_TIMED, 1), None),
+            ("scaled_gram", "scaled_gram.cu",
+             "tulip_tpu/kkt/pallas_chol.py:36", gram_errs[GRAM_TIMED], gk,
+             gp, gram_bound(*GRAM_TIMED), gl)]:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tulip_tpu_torch/csrc/{src}", "replaces": repl,
+            "launches": count.total[name], "max_abs_err": err_, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -71,7 +71,22 @@ def test_cli_missing_file(capsys):
     assert "no such file" in capsys.readouterr().err
 
 
-def test_cli_mpc_raises():
-    with pytest.raises(NotImplementedError, match="MPC"):
-        cli.main(["--Method", "MPC", "--Presolve", "0",
-                  str(DATA / "lp_opt.mps")], device="cpu")
+@pytest.mark.parametrize("name", ["lp_opt", "lp_inf", "lp_ubd",
+                                  "lp_freevars"])
+@pytest.mark.parametrize("presolve", ["1", "0"])
+def test_cli_mpc_matches_jax(run_both, name, presolve):
+    """``--Method MPC`` through Model, the iteration log included. On an
+    infeasible or unbounded file MPC's iterate runs off along the
+    certificate ray (the dual objective grows tenfold a pass), where
+    rounding-level differences move the detection by a pass: the logs'
+    lengths are held equal only for an optimal run."""
+    (rc_j, rows_j, st_j, z_j), (rc_t, rows_t, st_t, z_t) = run_both(
+        ["--Method", "MPC", "--Presolve", presolve, "--OutputLevel", "1",
+         str(DATA / f"{name}.mps")])
+    assert (rc_t, st_t) == (rc_j, st_j)
+    if st_j == "OPTIMAL":
+        assert [r.split()[0] for r in rows_t] == \
+            [r.split()[0] for r in rows_j]
+        assert abs(z_t - z_j) <= 1e-9 * max(1.0, abs(z_j))
+    else:
+        assert abs(len(rows_t) - len(rows_j)) <= 1

@@ -216,13 +216,11 @@ def test_hsd_solve_single_lp_and_padding():
 
 @pytest.mark.parametrize("opts,B,exc", [
     (HSDOptions(OutputLevel=1), 2, ValueError),
-    (HSDOptions(TimeLimit=10.0), 2, ValueError),
-    (HSDOptions(MehrotraStart=True), 1, NotImplementedError)],
-    ids=["output", "time-limit", "mehrotra"])
+    (HSDOptions(TimeLimit=10.0), 2, ValueError)],
+    ids=["output", "time-limit"])
 def test_unported_options_raise(opts, B, exc):
-    """MehrotraStart is not ported yet. The iteration log and the time
-    limit are ported for one LP; a batch raises, as the reference's
-    batched solve has neither."""
+    """The iteration log and the time limit are ported for one LP; a batch
+    raises, as the reference's batched solve has neither."""
     dats = stack_lps_host(random_lps(1, B=B), device="cpu",
                           dtype=torch.float64)
     with pytest.raises(exc):
@@ -266,8 +264,3 @@ def test_time_limit_matches_jax(limit, status):
     assert int(got.niter[0]) == int(want.niter)
     if status == TerminationStatus.TIME_LIMIT:
         assert int(got.niter[0]) == 1
-
-
-def test_fused_solve_raises():
-    with pytest.raises(NotImplementedError):
-        SmallK1Backend(fused_solve=True)

@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from tulip_tpu_torch.ops import chol, gram
+from tulip_tpu_torch.ops import chol, gram, solve
 from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                       batched_cholesky_inverse_plain)
 from tulip_tpu_torch.ops.gram import scaled_gram, scaled_gram_plain
+from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
+                                       batched_fused_k1_solve_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +144,164 @@ def test_dense_pallas_model_on_card_uses_kernel(cuda):
     assert m.optimize() == TerminationStatus.OPTIMAL
     assert gram.KERNEL_LAUNCHES > before
     assert abs(get_attribute(m, "ObjectiveValue") - 1.5) <= 1e-3
+
+
+@pytest.mark.parametrize("p", [2, 3, 4])
+@pytest.mark.parametrize("B,m", [(7, 16), (9, 48), (2048, 48), (5, 64),
+                                 (6, 100), (3, 300)])
+def test_packed_chol_inv_matches_unpacked_and_plain(cuda, B, m, p):
+    """p instances per block give kernel 1's output bit for bit (the same
+    arithmetic per instance) and agree with the plain version. At m = 300
+    the launcher lowers p to 1: the unpacked device-memory launch."""
+    K = spd_batch(B, m, seed=B + m, device=cuda)
+    one = batched_cholesky_inverse(K)
+    before = (chol.KERNEL_LAUNCHES, chol.KERNEL_LAUNCHES_PACKED)
+    got = batched_cholesky_inverse(K, pack=p)
+    torch.cuda.synchronize()
+    packed = m <= 224
+    assert (chol.KERNEL_LAUNCHES, chol.KERNEL_LAUNCHES_PACKED) == (
+        before[0] + (not packed), before[1] + packed)
+    assert torch.equal(got, one)
+    want = batched_cholesky_inverse_plain(K)
+    if m <= 100:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        rel = (torch.linalg.matrix_norm(got - want)
+               / torch.linalg.matrix_norm(want)).max().item()
+        assert rel <= 1e-4
+
+
+@pytest.mark.parametrize("m", [16, 48])
+def test_packed_chol_inv_nonspd_lane(cuda, m):
+    """A non-SPD instance inside a packed block fails alone."""
+    K = spd_batch(8, m, seed=2, device=cuda)
+    K[5] = -K[5]
+    finite = torch.isfinite(batched_cholesky_inverse(K, pack=4)) \
+        .all(-1).all(-1).tolist()
+    assert finite == [True] * 5 + [False] + [True] * 2
+
+
+def fused_inputs(B, m, n, seed, device):
+    """treg spanning 10^±2, regD 1e-4, Li = L⁻¹ of K = A D Aᵀ + diag(regD)
+    (plain chol-inv in f64 on the card), random right-hand sides."""
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    A = t(rng.standard_normal((B, m, n)))
+    treg = t(10.0 ** rng.uniform(-2, 2, (B, n)))
+    d = 1.0 / treg
+    regD = torch.full((B, m), 1e-4, device=device)
+    xi_p = t(rng.standard_normal((B, m)))
+    xi_d = t(rng.standard_normal((B, n)))
+    A64 = A.double()
+    K = (A64 * d.double()[:, None, :]) @ A64.transpose(1, 2) \
+        + torch.diag_embed(regD.double())
+    Li = batched_cholesky_inverse_plain(K).float()
+    return A, Li, d, treg, regD, xi_p, xi_d
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+@pytest.mark.parametrize("B,m,n", [(2048, 48, 96), (7, 48, 96),
+                                   (4, 256, 512), (1, 1024, 2048),
+                                   (2, 64, 8192)])
+def test_fused_solve_kernel_matches_plain(cuda, B, m, n, refine):
+    """Per lane, against max(1, max|exact|), exact being the plain version
+    in f64 on the same inputs: with a sweep, the kernel within 1e-4 of the
+    plain version in f32 (f32 products summed in another order than
+    cuBLAS's); without one, where the factor's conditioning amplifies f32
+    rounding, the kernel's worst lane at most twice as far from exact as
+    the plain f32 version's (+1e-6). At n = 8192 the n-long vectors do not
+    fit in shared memory and live in device memory."""
+    args = fused_inputs(B, m, n, seed=m + refine, device=cuda)
+    counts = (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+              solve.WIDE_LAUNCHES)
+    got = batched_fused_k1_solve(*args, refine=refine)
+    torch.cuda.synchronize()
+    streamed, wide = m >= 256 or n > 4096, n > 4096
+    assert (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+            solve.WIDE_LAUNCHES) == (counts[0] + 1, counts[1] + streamed,
+                                     counts[2] + wide)
+    want = batched_fused_k1_solve_plain(*args, refine=refine)
+    exact = batched_fused_k1_solve_plain(*[a.double() for a in args],
+                                         refine=refine)
+    for g, w, e in zip(got, want, exact):
+        scale = e.abs().amax(-1).clamp_min(1.0)
+        err_k = ((g.double() - e).abs().amax(-1) / scale).max().item()
+        err_p = ((w.double() - e).abs().amax(-1) / scale).max().item()
+        if refine:
+            assert ((g - w).abs().amax(-1) <= 1e-4 * scale.float()).all()
+        else:
+            assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+def test_fused_backend_takes_the_kernel_at_any_n(cuda):
+    """The fused backend's gate is the reference's (f32, m <= 1024): an
+    instance with n > 4096 goes to the kernel, its n-long vectors in
+    device memory."""
+    from tulip_tpu_torch.kkt import SmallK1Backend
+    from tulip_tpu_torch.kkt.dense import DenseK1State
+
+    A, Li, d, treg, regD, xi_p, xi_d = fused_inputs(2, 32, 8192, seed=8,
+                                                    device=cuda)
+    state = DenseK1State(A=A, d=d, theta_reg=treg, regD=regD, L=Li)
+    be = SmallK1Backend(fused_solve=True, refinement_steps=1)
+    counts = (solve.KERNEL_LAUNCHES, solve.WIDE_LAUNCHES)
+    dx, dy = be.solve(state, xi_p, xi_d)
+    torch.cuda.synchronize()
+    assert (solve.KERNEL_LAUNCHES, solve.WIDE_LAUNCHES) == (counts[0] + 1,
+                                                            counts[1] + 1)
+    want = batched_fused_k1_solve_plain(A, Li, d, treg, regD, xi_p, xi_d, 1)
+    for g, w in zip((dx, dy), want):
+        scale = w.abs().amax(-1).clamp_min(1.0)
+        assert ((g - w).abs().amax(-1) <= 1e-4 * scale).all()
+
+
+def test_fused_solve_kernel_nonfinite_lane(cuda):
+    A, Li, d, treg, regD, xi_p, xi_d = fused_inputs(6, 48, 96, seed=3,
+                                                    device=cuda)
+    A[2, 5, 7] = float("nan")
+    dx, dy = batched_fused_k1_solve(A, Li, d, treg, regD, xi_p, xi_d, 1)
+    ok = (torch.isfinite(dx).all(-1) & torch.isfinite(dy).all(-1)).tolist()
+    assert ok == [True, True, False, True, True, True]
+
+
+def test_fused_solve_kernel_refuses(cuda):
+    args = list(fused_inputs(2, 16, 24, seed=4, device=cuda))
+    with pytest.raises(TypeError):
+        batched_fused_k1_solve(*[a.double() for a in args])
+    with pytest.raises(ValueError):
+        batched_fused_k1_solve(args[0], args[1], args[2], args[3],
+                               args[4][:, :-1], args[5], args[6])
+    with pytest.raises(ValueError):
+        batched_fused_k1_solve(args[0].transpose(1, 2).contiguous()
+                               .transpose(1, 2), *args[1:])
+
+
+def test_fused_backend_on_card_uses_both_kernels(cuda):
+    from tulip_tpu_torch.ipm.batch import (batched_hsd_resolve,
+                                           batched_hsd_solve, stack_lps_host)
+    from tulip_tpu_torch.ipm.hsd import HSDOptions
+    from tulip_tpu_torch.kkt import SmallK1Backend
+    from tulip_tpu_torch.status import TerminationStatus
+
+    rng = np.random.default_rng(0)
+    raws = []
+    for _ in range(16):
+        A = rng.standard_normal((12, 24))
+        u = rng.uniform(1, 4, 24)
+        raws.append((A, A @ (u * rng.uniform(0.2, 0.8, 24)),
+                     rng.standard_normal(24), 0.0, np.zeros(24), u))
+    dats = stack_lps_host(raws, device=cuda, dtype=torch.float32)
+    opts = HSDOptions(TolerancePFeas=3e-4, ToleranceDFeas=3e-4,
+                      ToleranceRGap=3e-4, ToleranceIFeas=3e-4,
+                      PRegMin=1e-6, DRegMin=1e-6)
+    be = SmallK1Backend(refinement_steps=1, fused_solve=True, pack=4)
+    before = (solve.KERNEL_LAUNCHES, chol.KERNEL_LAUNCHES_PACKED)
+    out = batched_hsd_solve(be, opts, dats)
+    assert solve.KERNEL_LAUNCHES > before[0]
+    assert chol.KERNEL_LAUNCHES_PACKED > before[1]
+    assert (out.status == int(TerminationStatus.OPTIMAL)).all().item()
+    warm = batched_hsd_resolve(be, opts, dats, out)
+    assert (warm.status == int(TerminationStatus.OPTIMAL)).all().item()

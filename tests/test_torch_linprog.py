@@ -85,9 +85,3 @@ def test_batch_linprog_matches_jax(make, presolve):
             assert abs(g.fun - w.fun) <= 1e-6 * max(1.0, abs(w.fun))
             np.testing.assert_allclose(g.x, w.x, atol=1e-6, rtol=0)
     assert any(w.success for w in want)
-
-
-def test_mpc_raises():
-    with pytest.raises(NotImplementedError):
-        tlt.batch_linprog(presolve_paths()[:1], device="cpu",
-                          algorithm="MPC")

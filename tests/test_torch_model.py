@@ -117,9 +117,8 @@ def small_staircase(m, seed=0):
     {"KKT_System": "K2"},
     {"IPM_TolerancePFeas": 1e-10, "IPM_ToleranceDFeas": 1e-10,
      "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
-    {"IPM_Algorithm": "MPC"},
     {"KKT_Backend": "sparse"},
-], ids=["sparse-first", "K2", "extended", "MPC", "unported-backend"])
+], ids=["sparse-first", "K2", "extended", "unported-backend"])
 def test_unported_routes_raise_before_device_work(params):
     """device="cuda" on a machine without CUDA: reaching any device work
     would raise something else than NotImplementedError."""

@@ -21,7 +21,9 @@ def test_import_does_not_pull_in_jax():
             "tulip_tpu_torch.kkt, tulip_tpu_torch.ops, "
             "tulip_tpu_torch.convert, tulip_tpu_torch.model, "
             "tulip_tpu_torch.cli, tulip_tpu_torch.api, tulip_tpu_torch.io, "
-            "tulip_tpu_torch.kkt.gram, tulip_tpu_torch.ops.gram; "
+            "tulip_tpu_torch.kkt.gram, tulip_tpu_torch.ops.gram, "
+            "tulip_tpu_torch.ops.solve, tulip_tpu_torch.ipm.mpc, "
+            "tulip_tpu_torch.ipm.warmstart; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "

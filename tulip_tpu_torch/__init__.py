@@ -6,13 +6,17 @@ module layout mirrors ``tulip_tpu``'s, so each module has a counterpart
 there. So far it covers:
 
 - one LP: ``Model.optimize()``, ``linprog``, the CLI and the MPS reader,
-  with HSD on the dense K1 backends ``"dense"``, ``"pallas-small"`` and
-  ``"dense-pallas"``;
-- many LPs: ``batch_linprog`` and ``ipm.batched_hsd_solve``.
+  with HSD or MPC on the dense K1 backends ``"dense"``, ``"pallas-small"``
+  and ``"dense-pallas"``;
+- many LPs: ``batch_linprog`` (HSD or MPC), ``ipm.batched_hsd_solve``,
+  ``ipm.batched_mpc_solve`` and the warm-started
+  ``ipm.batched_hsd_resolve``.
 
-Two hand-written CUDA kernels serve the f32 paths on the card:
-``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``) and
-``csrc/scaled_gram.cu`` (K = A·diag(d)·Aᵀ of ``"dense-pallas"``).
+Three hand-written CUDA kernels serve the f32 paths on the card:
+``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``, one or
+``pack`` instances per thread block), ``csrc/fused_solve.cu`` (its solve,
+with ``SmallK1Backend(fused_solve=True)``) and ``csrc/scaled_gram.cu``
+(K = A·diag(d)·Aᵀ of ``"dense-pallas"``).
 
 Host layers (problem data, parameters, statuses, presolve, MPS reading)
 are numpy code copied verbatim from ``tulip_tpu``, so this package runs

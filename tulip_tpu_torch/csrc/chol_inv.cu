@@ -32,6 +32,24 @@
 // shape buckets send m = 256, 512 and 1024 there. m > 1024 is refused,
 // matching the reference's routing (kkt/pallas_chol.py:117).
 //
+// Packed variant (tulip_chol_inv_packed_f32): replaces
+// tulip_tpu/ops/chol.py:_packed_chol_inv_kernel (pack > 1 in
+// batched_cholesky_inverse_pallas, chol.py:223). On the TPU, packing laid p
+// instances side by side in the 128 lanes of the vector unit, which at
+// m = 48 left 62% of every operation idle. Lanes have no counterpart here;
+// the matching waste on Hopper is a 128-thread block per instance whose
+// threads mostly wait at its barriers (48 of them have a column in the
+// forward substitution), and a batch of 2048 at 34 registers x 128 threads
+// that needs two waves. The packed launch puts p instances in one block,
+// each on its own group of threads: one warp per instance for m <= 32,
+// synchronised with __syncwarp; two warps for m <= 64 and four above, each
+// group synchronised with its own named barrier (bar.sync 1 + g, count), so
+// no group waits for another. Smaller groups let more instances share an
+// SM's registers. Where p instances do not fit in shared memory, in 1024
+// threads or in the 15 named barriers, the launcher lowers p to what fits;
+// at p = 1 (always for m > 224, whose instances live in device memory) it
+// makes the unpacked launch.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, without --use_fast_math: the pivots need the IEEE
 // 1/sqrtf that the TPU kernel also insists on (chol.py:20).
@@ -44,15 +62,40 @@ namespace {
 
 constexpr int kMaxM = 1024;
 constexpr int kSharedMaxM = 224;
+// Named barrier ids 1..15 (0 is __syncthreads'): at most 15 groups a block.
+constexpr int kMaxNamedGroups = 15;
+
+// Barriers over the threads that work on one instance: the whole block, one
+// warp, or a named barrier over a group of whole warps.
+struct BlockBarrier {
+  __device__ void operator()() const { __syncthreads(); }
+};
+
+// Group g of a packed block: the group is one whole warp.
+struct WarpBarrier {
+  __device__ WarpBarrier(int, int) {}
+  __device__ void operator()() const { __syncwarp(); }
+};
+
+// Group g of a packed block: `group` threads on named barrier 1 + g.
+struct NamedBarrier {
+  int id;
+  int count;
+  __device__ NamedBarrier(int g, int group) : id(1 + g), count(group) {}
+  __device__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+  }
+};
 
 // Factor and invert one instance held in S (lower triangle valid on entry,
-// row stride ld). On exit X = L^-1 is stored transposed in the upper
-// triangle: X[i][c] at S[c * ld + i] for i >= c. Ld and col are m-float
-// shared arrays for L's diagonal and the current column of L.
+// row stride ld) with threads tid = 0 .. nthreads - 1 (a multiple of 32)
+// that `bar` synchronises. On exit X = L^-1 is stored transposed in the
+// upper triangle: X[i][c] at S[c * ld + i] for i >= c. Ld and col are
+// m-float arrays for L's diagonal and the current column of L.
+template <class Barrier>
 __device__ void factor_and_invert(float* S, int ld, float* Ld, float* col,
-                                  int m) {
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+                                  int m, int tid, int nthreads,
+                                  Barrier bar) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
@@ -71,7 +114,7 @@ __device__ void factor_and_invert(float* S, int ld, float* Ld, float* col,
         S[i * ld + j] = v;
       }
     }
-    __syncthreads();
+    bar();
     // Rank-1 update of the trailing lower triangle, j < k <= i < m: a warp
     // per row, lanes along the row.
     for (int i = j + 1 + warp; i < m; i += nwarps) {
@@ -79,7 +122,7 @@ __device__ void factor_and_invert(float* S, int ld, float* Ld, float* col,
       float* row = S + static_cast<size_t>(i) * ld;
       for (int k = j + 1 + lane; k <= i; k += 32) row[k] -= li * col[k];
     }
-    __syncthreads();
+    bar();
   }
 
   // Phase 2: column c of X = L^-1 by forward substitution, one thread per
@@ -95,7 +138,32 @@ __device__ void factor_and_invert(float* S, int ld, float* Ld, float* col,
       xc[i] = -acc / Ld[i];
     }
   }
-  __syncthreads();
+  bar();
+}
+
+// One instance in shared memory (smem: Ld, col, then S with row stride
+// m + 1): load the lower triangle of Kb, factor, invert, and write L^-1 with
+// exact zeros above the diagonal to Ob.
+template <class Barrier>
+__device__ void shared_instance(const float* __restrict__ Kb, float* Ob,
+                                float* smem, int m, int tid, int nthreads,
+                                Barrier bar) {
+  float* Ld = smem;
+  float* col = smem + m;
+  float* S = smem + 2 * m;
+  const int ld = m + 1;
+  for (int e = tid; e < m * m; e += nthreads) {
+    const int i = e / m;
+    const int k = e - i * m;
+    if (k <= i) S[i * ld + k] = Kb[e];
+  }
+  bar();
+  factor_and_invert(S, ld, Ld, col, m, tid, nthreads, bar);
+  for (int e = tid; e < m * m; e += nthreads) {
+    const int i = e / m;
+    const int c = e - i * m;
+    Ob[e] = c <= i ? S[c * ld + i] : 0.0f;
+  }
 }
 
 template <bool kShared>
@@ -107,27 +175,20 @@ __global__ void chol_inv_kernel(const float* __restrict__ K, float* out,
   const size_t base = static_cast<size_t>(blockIdx.x) * m * m;
   const float* Kb = K + base;
   float* Ob = out + base;
-  float* Ld = smem;
-  float* col = smem + m;
-  float* S = kShared ? smem + 2 * m : Ob;
-  const int ld = kShared ? m + 1 : m;
-
-  for (int e = tid; e < m * m; e += nthreads) {
-    const int i = e / m;
-    const int k = e - i * m;
-    if (k <= i) S[i * ld + k] = Kb[e];
-  }
-  __syncthreads();
-
-  factor_and_invert(S, ld, Ld, col, m);
-
   if (kShared) {
+    shared_instance(Kb, Ob, smem, m, tid, nthreads, BlockBarrier{});
+  } else {
+    // The same algorithm in place in Ob (row stride m); only Ld and col
+    // live in shared memory.
+    float* Ld = smem;
+    float* col = smem + m;
     for (int e = tid; e < m * m; e += nthreads) {
       const int i = e / m;
-      const int c = e - i * m;
-      Ob[e] = c <= i ? S[c * ld + i] : 0.0f;
+      const int k = e - i * m;
+      if (k <= i) Ob[e] = Kb[e];
     }
-  } else {
+    __syncthreads();
+    factor_and_invert(Ob, m, Ld, col, m, tid, nthreads, BlockBarrier{});
     // X sits transposed in the upper triangle of Ob: move it below the
     // diagonal, then clear the upper triangle.
     for (int e = tid; e < m * m; e += nthreads) {
@@ -142,6 +203,24 @@ __global__ void chol_inv_kernel(const float* __restrict__ K, float* out,
       if (c > i) Ob[e] = 0.0f;
     }
   }
+}
+
+// p instances per block, each on a group of `group` threads (a multiple of
+// 32) with its own slice of shared memory; Barrier is WarpBarrier for
+// group == 32, else NamedBarrier.
+template <class Barrier>
+__global__ void chol_inv_packed_kernel(const float* __restrict__ K, float* out,
+                                       int m, int batch, int group) {
+  extern __shared__ float smem[];
+  const int g = threadIdx.x / group;
+  const int tid = threadIdx.x - g * group;
+  const int p = blockDim.x / group;
+  const int inst = blockIdx.x * p + g;
+  if (inst >= batch) return;
+  const size_t base = static_cast<size_t>(inst) * m * m;
+  float* mine = smem + static_cast<size_t>(g) * (2 * m + m * (m + 1));
+  shared_instance(K + base, out + base, mine, m, tid, group,
+                  Barrier(g, group));
 }
 
 }  // namespace
@@ -173,5 +252,61 @@ extern "C" int tulip_chol_inv_f32(const float* K, float* out, int batch,
   } else {
     chol_inv_kernel<false><<<batch, threads, smem, s>>>(K, out, m);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed launch: as tulip_chol_inv_f32, with up to `pack` instances per
+// block. The launcher lowers pack to what fits (shared memory, 1024 threads,
+// 15 named barriers, the batch) and writes the count it used to `*used`;
+// at 1 it makes the unpacked launch.
+extern "C" int tulip_chol_inv_packed_f32(const float* K, float* out, int batch,
+                                         int m, int pack, int device,
+                                         void* stream, int* used) {
+  if (batch <= 0 || m <= 0 || m > kMaxM || pack < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = m <= 32 ? 32 : (m <= 64 ? 64 : 128);
+  const size_t per = (2 * static_cast<size_t>(m) +
+                      static_cast<size_t>(m) * (m + 1)) * sizeof(float);
+  int p = pack;
+  if (m > kSharedMaxM) p = 1;
+  p = p < 1024 / group ? p : 1024 / group;
+  if (group > 32 && p > kMaxNamedGroups) p = kMaxNamedGroups;
+  const int fit = static_cast<int>(static_cast<size_t>(max_smem) / per);
+  p = p < fit ? p : fit;
+  p = p < batch ? p : batch;
+  if (p <= 1) {
+    *used = 1;
+    return tulip_chol_inv_f32(K, out, batch, m, device, stream);
+  }
+  const size_t smem = per * p;
+  const int blocks = (batch + p - 1) / p;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group == 32) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(chol_inv_packed_kernel<WarpBarrier>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    chol_inv_packed_kernel<WarpBarrier><<<blocks, p * group, smem, s>>>(
+        K, out, m, batch, group);
+  } else {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(chol_inv_packed_kernel<NamedBarrier>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    chol_inv_packed_kernel<NamedBarrier><<<blocks, p * group, smem, s>>>(
+        K, out, m, batch, group);
+  }
+  *used = p;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
-"""Interior-point method (HSD) over batch-first tensors."""
+"""Interior-point methods (HSD, MPC) over batch-first tensors."""
 
-from .batch import batched_hsd_solve, stack_lps_host
+from .batch import (batched_hsd_resolve, batched_hsd_solve,
+                    batched_mpc_solve, stack_lps_host)
 from .data import LPData, lp_data_from_problem, make_lp_data
 from .hsd import HSDOptions, HSDState, hsd_solve
+from .mpc import MPCOptions, mpc_solve
 from .point import Point, Residuals
 
 __all__ = [
@@ -14,6 +16,10 @@ __all__ = [
     "HSDOptions",
     "HSDState",
     "hsd_solve",
+    "MPCOptions",
+    "mpc_solve",
     "batched_hsd_solve",
+    "batched_hsd_resolve",
+    "batched_mpc_solve",
     "stack_lps_host",
 ]

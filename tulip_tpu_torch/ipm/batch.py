@@ -2,8 +2,11 @@
 
 Counterpart of ``tulip_tpu/ipm/batch.py``. The JAX package vmaps the whole
 solve; here every tensor already carries the lane axis, and
-:func:`batched_hsd_solve` is a host loop that stops once no lane is
-UNKNOWN, one host sync per iteration.
+:func:`batched_hsd_solve`, :func:`batched_hsd_resolve` and
+:func:`batched_mpc_solve` run the one host loop of :func:`.hsd.solve`,
+which stops once no lane is UNKNOWN, one host sync per iteration.
+``shard_batch`` (placing a batch across cards) is not ported yet: ROADMAP
+queue 1, item 10.
 
 Heterogeneous instances are padded to a common (m, n) envelope: padded
 columns get c = 0 and bounds l = u = 0 (both flags on), pinning them to
@@ -20,6 +23,8 @@ import torch
 
 from .data import LPData
 from .hsd import HSDOptions, HSDState, solve
+from .mpc import MPCOptions, init_state_mpc, mpc_iteration
+from .warmstart import warm_state
 
 
 def pad_lp(dat: LPData, m_pad: int, n_pad: int) -> LPData:
@@ -109,3 +114,18 @@ def batched_hsd_solve(backend, opts: HSDOptions, dats: LPData) -> HSDState:
     lane converges, or stops, on its own; the loop ends when none is
     UNKNOWN."""
     return solve(backend, opts, dats)
+
+
+def batched_hsd_resolve(backend, opts: HSDOptions, dats: LPData,
+                        prev: HSDState, lam: float = 0.99) -> HSDState:
+    """Warm-started batched re-solve: each lane starts from the blended
+    homogeneous restart of its lane of ``prev``, the final state of a
+    related solve of the same shapes (:mod:`.warmstart`)."""
+    return solve(backend, opts, dats,
+                 init=lambda dat, be: warm_state(dat, be, prev, lam=lam))
+
+
+def batched_mpc_solve(backend, opts: MPCOptions, dats: LPData) -> HSDState:
+    """Batched Mehrotra predictor-corrector solves."""
+    return solve(backend, opts, dats, init=init_state_mpc,
+                 iteration=mpc_iteration, algo="MPC")

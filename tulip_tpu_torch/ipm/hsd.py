@@ -59,7 +59,6 @@ class HSDOptions:
     ``OutputLevel > 0`` (an iteration log) and a finite ``TimeLimit``
     apply to one LP, a batch of one; for more lanes the solve raises
     ``ValueError``, as the reference's batched path has neither.
-    ``MehrotraStart`` is not ported yet and raises.
     """
 
     TolerancePFeas: float = 1.4901161193847656e-08
@@ -303,6 +302,29 @@ def _higher_corrector(dat: LPData, opts: HSDOptions, pt: Point, kkt_solve,
 # One HSD step
 # ---------------------------------------------------------------------------
 
+def factor_with_bumps(backend, kkt, theta_inv, regP, regD, regG=None):
+    """Factorization with up to 3 ×100 regularization bumps on failure
+    (step.jl:34-51; MPC: MPC/step.jl:34-51). Only lanes that failed retry,
+    each keeping its own regularization, as under the reference's vmapped
+    while_loop. ``regG`` (HSD only) is bumped with them. Returns (kkt,
+    regP, regD, regG, per-lane ok)."""
+    kkt, ok = backend.update(kkt, theta_inv, regP, regD)
+    for _ in range(3):
+        retry = ~ok
+        if not bool(retry.any()):
+            break
+        rp = regP * 100.0
+        rd = regD * 100.0
+        kkt_b, ok_b = backend.update(kkt, theta_inv, rp, rd)
+        kkt = tree_where(retry, kkt_b, kkt)
+        regP = tree_where(retry, rp, regP)
+        regD = tree_where(retry, rd, regD)
+        if regG is not None:
+            regG = torch.where(retry, regG * 100.0, regG)
+        ok = torch.where(retry, ok_b, ok)
+    return kkt, regP, regD, regG, ok
+
+
 def compute_step(backend, opts: HSDOptions, dat: LPData, state: HSDState,
                  ) -> HSDState:
     """One full HSD step for every lane (reference: src/IPM/HSD/step.jl:10-151).
@@ -321,23 +343,8 @@ def compute_step(backend, opts: HSDOptions, dat: LPData, state: HSDState,
     regD = torch.clamp_min(state.regD / 10.0, opts.DRegMin)
     regG = torch.clamp_min(state.regG / 10.0, opts.PRegMin)
 
-    # Factorization with up to 3 ×100 regularization bumps on failure
-    # (step.jl:34-51). Only lanes that failed and have bumps left retry.
-    kkt, fact_ok = backend.update(state.kkt, theta_inv, regP, regD)
-    nbump = 0
-    while nbump < 3:
-        retry = ~fact_ok
-        if not bool(retry.any()):
-            break
-        rp = regP * 100.0
-        rd = regD * 100.0
-        kkt_b, ok_b = backend.update(kkt, theta_inv, rp, rd)
-        kkt = tree_where(retry, kkt_b, kkt)
-        regP = tree_where(retry, rp, regP)
-        regD = tree_where(retry, rd, regD)
-        regG = torch.where(retry, regG * 100.0, regG)
-        fact_ok = torch.where(retry, ok_b, fact_ok)
-        nbump += 1
+    kkt, regP, regD, regG, fact_ok = factor_with_bumps(
+        backend, state.kkt, theta_inv, regP, regD, regG)
 
     kkt_solve = partial(backend.solve, kkt)
     kkt_solve_pred = (partial(backend.solve_unrefined, kkt)
@@ -416,6 +423,15 @@ def compute_step(backend, opts: HSDOptions, dat: LPData, state: HSDState,
 # Convergence / certificate tests
 # ---------------------------------------------------------------------------
 
+def first_match(like: torch.Tensor, *pairs, default) -> torch.Tensor:
+    """Per lane, the code of the first (mask, code) pair whose mask holds,
+    else ``default``, as nested ``jnp.where`` gives it."""
+    out = torch.full_like(like, default)
+    for mask, code in reversed(pairs):
+        out = out.masked_fill(mask, code)
+    return out
+
+
 def update_status(dat: LPData, opts: HSDOptions, norms: DataNorms,
                   state: HSDState) -> HSDState:
     """Optimality test + unboundedness and Farkas-infeasibility certificate
@@ -454,13 +470,7 @@ def update_status(dat: LPData, opts: HSDOptions, norms: DataNorms,
                      / torch.clamp_min(norms.c, 1.0)
                      < farkas_obj * opts.ToleranceIFeas)
 
-    def pick(*pairs, default):
-        # First matching (mask, code) wins, as nested jnp.where does.
-        out = torch.full_like(state.status, default)
-        for mask, code in reversed(pairs):
-            out = out.masked_fill(mask, code)
-        return out
-
+    pick = partial(first_match, state.status)
     status = pick((optimal, _OPTIMAL), (dual_infeas, _DUAL_INFEASIBLE),
                   (primal_infeas, _PRIMAL_INFEASIBLE), default=_UNKNOWN)
     primal_status = pick((optimal, _SLN_OPTIMAL),
@@ -478,11 +488,28 @@ def update_status(dat: LPData, opts: HSDOptions, norms: DataNorms,
 # Iteration + solve loop
 # ---------------------------------------------------------------------------
 
-def init_state(dat: LPData, backend) -> HSDState:
-    """Cold-start state for every lane (reference: HSD.jl:34-65, 238-249)."""
+def init_state(dat: LPData, backend, mehrotra: bool = False) -> HSDState:
+    """Cold-start state for every lane (reference: HSD.jl:34-65, 238-249).
+
+    ``mehrotra=True`` replaces the all-ones start with the Mehrotra
+    least-squares point embedded at τ = κ = 1 (one extra factorization and
+    two extra solves, once per solve; ``tulip_tpu/ipm/hsd.py:498-527``).
+    """
     kkt = backend.setup_data(dat)
-    pt = starting_point(dat, hflag=True)
-    res = compute_residuals(dat, pt)
+    if mehrotra:
+        from .mpc import mpc_starting_point
+        pt, kkt = mpc_starting_point(dat, backend, kkt)
+        pt = update_mu(pt._replace(kappa=torch.ones_like(pt.kappa)), dat,
+                       hflag=True)
+    else:
+        pt = starting_point(dat, hflag=True)
+    return fresh_state(dat, pt, compute_residuals(dat, pt), kkt,
+                       regG=torch.ones_like(dat.c0))
+
+
+def fresh_state(dat: LPData, pt: Point, res, kkt, regG) -> HSDState:
+    """State before the first iteration: unit regP and regD, iteration 0,
+    statuses UNKNOWN, objectives ±inf."""
     B = dat.c.shape[0]
     dev = dat.c.device
 
@@ -493,7 +520,7 @@ def init_state(dat: LPData, backend) -> HSDState:
         pt=pt, res=res,
         regP=torch.ones_like(dat.c),
         regD=torch.ones_like(dat.b),
-        regG=torch.ones_like(dat.c0),
+        regG=regG,
         kkt=kkt,
         niter=codes(0),
         status=codes(_UNKNOWN),
@@ -525,24 +552,32 @@ def hsd_iteration(backend, opts: HSDOptions, dat: LPData, state: HSDState,
     return tree_where(moving, compute_step(backend, opts, dat, state), state)
 
 
-def solve(backend, opts: HSDOptions, dat: LPData) -> HSDState:
-    """Cold-start every lane and run :func:`hsd_iteration` until no lane is
-    UNKNOWN. A lane that has terminated keeps its state, as a lane of
-    ``lax.while_loop`` under vmap does. Terminates: every lane reaches a
-    status by IterationsLimit. For one LP, the same loop prints the
-    iteration log and checks the wall-clock limit between passes
-    (reference: ``tulip_tpu/ipm/hsd.py:597-649``, HSD.jl:203-350)."""
-    if opts.MehrotraStart:
-        raise NotImplementedError("MehrotraStart is not ported yet")
+def solve(backend, opts, dat: LPData, init=None, iteration=None,
+          algo: str = "HSD") -> HSDState:
+    """Start every lane with ``init(dat, backend)`` and run ``iteration``
+    until no lane is UNKNOWN. A lane that has terminated keeps its state,
+    as a lane of ``lax.while_loop`` under vmap does. Terminates: every lane
+    reaches a status by IterationsLimit. For one LP, the same loop prints
+    the iteration log and checks the wall-clock limit between passes
+    (reference: ``tulip_tpu/ipm/hsd.py:597-649``, HSD.jl:203-350).
+
+    The defaults are the HSD method's (:func:`init_state`, honouring
+    ``opts.MehrotraStart``, and :func:`hsd_iteration`); the MPC method and
+    the warm restart pass their own, and ``algo`` names the method in the
+    log."""
+    if init is None:
+        init = partial(init_state, mehrotra=opts.MehrotraStart)
+    if iteration is None:
+        iteration = hsd_iteration
     host_driven = opts.OutputLevel > 0 or opts.TimeLimit != float("inf")
     if host_driven and dat.A.shape[0] != 1:
         raise ValueError("OutputLevel > 0 and a finite TimeLimit apply to "
                          "one LP, not to a batch")
     with full_matmul_precision():
-        state = init_state(dat, backend)
+        state = init(dat, backend)
         tstart = time.time()
         if opts.OutputLevel > 0:
-            _log_header(backend, dat)
+            _log_header(backend, dat, algo)
         while True:
             live = state.status == _UNKNOWN
             if not bool(live.any()):
@@ -551,12 +586,12 @@ def solve(backend, opts: HSDOptions, dat: LPData) -> HSDState:
             # point, then steps if the lane is not terminal: the logged row
             # belongs to the entry iteration count (row k = point k).
             n_entry = int(state.niter) if opts.OutputLevel > 0 else 0
-            state = tree_where(live, hsd_iteration(backend, opts, dat, state),
+            state = tree_where(live, iteration(backend, opts, dat, state),
                                state)
             if host_driven:
                 ttot = time.time() - tstart
                 if opts.OutputLevel > 0:
-                    _log_row(n_entry, state, ttot)
+                    _log_row(n_entry, state, ttot, algo)
                 if ttot >= opts.TimeLimit and int(state.status) == _UNKNOWN:
                     state = state._replace(status=torch.full_like(
                         state.status, int(TerminationStatus.TIME_LIMIT)))
@@ -566,26 +601,35 @@ def solve(backend, opts: HSDOptions, dat: LPData) -> HSDState:
     return state
 
 
-def _log_header(backend, dat: LPData) -> None:
-    """The iteration log's header (reference: ``tulip_tpu/ipm/hsd.py:599-610``,
-    HSD.jl:203-230)."""
-    print("\nOptimizer info (HSD)")
+def _log_header(backend, dat: LPData, algo: str) -> None:
+    """The iteration log's header (reference: ``tulip_tpu/ipm/hsd.py:599-610``
+    and ``tulip_tpu/ipm/mpc.py:463-472``; HSD.jl:203-230). MPC has no gap
+    column."""
+    print(f"\nOptimizer info ({algo})")
     print(f"Constraints  : {dat.nrow}")
     print(f"Variables    : {dat.ncol}")
     print("Linear solver:")
     print(f"  Arithmetic : {backend.arithmetic_label(dat.c.dtype)}")
     print(f"  Backend    : {backend.name}")
     print(f"  System     : {backend.linear_system()}")
+    gap = f" {'GFeas':>8}" if algo == "HSD" else ""
     print(f"\n{'Itn':>4}  {'PObj':>14}  {'DObj':>14}  "
-          f"{'PFeas':>8} {'DFeas':>8} {'GFeas':>8}  {'Mu':>7}  Time")
+          f"{'PFeas':>8} {'DFeas':>8}{gap}  {'Mu':>7}  Time")
 
 
-def _log_row(k: int, s: HSDState, ttot: float) -> None:
+def _log_row(k: int, s: HSDState, ttot: float, algo: str) -> None:
+    """One row: HSD's primal column is max(rp, ru) and it adds the gap
+    residual; MPC's is rp (``tulip_tpu/ipm/mpc.py:481-485``)."""
+    if algo == "HSD":
+        pfeas = float(torch.maximum(s.res.rp_nrm, s.res.ru_nrm))
+        gap = f" {float(s.res.rg_nrm):8.2e}"
+    else:
+        pfeas = float(s.res.rp_nrm)
+        gap = ""
     print(f"{k:4d}  {float(s.pobj):+14.7e}  "
           f"{float(s.dobj):+14.7e}  "
-          f"{float(torch.maximum(s.res.rp_nrm, s.res.ru_nrm)):8.2e} "
-          f"{float(s.res.rd_nrm):8.2e} "
-          f"{float(s.res.rg_nrm):8.2e}  "
+          f"{pfeas:8.2e} "
+          f"{float(s.res.rd_nrm):8.2e}{gap}  "
           f"{float(s.pt.mu):7.1e}  {ttot:.2f}")
 
 

@@ -10,6 +10,7 @@ import dataclasses
 import torch
 
 from ..ops.chol import MAX_M, batched_cholesky_inverse
+from ..ops.solve import batched_fused_k1_solve
 from .dense import DenseK1Backend, DenseK1State, identity_where_failed, \
     normal_matrix
 
@@ -24,18 +25,28 @@ class SmallK1Backend(DenseK1Backend):
     with m ≤ 1024 goes to ``batched_cholesky_inverse``, which launches the
     kernel on a CUDA tensor and runs its plain version on a CPU tensor;
     float64, or m > 1024, goes to ``DenseK1Backend(inv_factor=True)``.
-    ``fused_solve`` (the reference's ``ops/solve.py`` kernel) is not ported
-    yet and raises.
+
+    ``fused_solve=True`` sends ``solve`` (with its ``refinement_steps``
+    sweeps) to ``batched_fused_k1_solve`` (``ops/solve.py``,
+    ``csrc/fused_solve.cu``) under the same gate (``pallas_chol.py:152-160``);
+    ``solve_unrefined`` stays the unfused ``_base_solve``, as in the
+    reference.
+
+    ``pack`` is not a tuning option: it exists so that a solve can drive
+    the packed chol-inv launch (the port of the reference's lane-packed
+    kernel, which the reference reaches only through
+    ``batched_cholesky_inverse(K, pack=p)``), as ``chip_smoke.py``'s warm
+    re-solve does. It is the count of instances per thread block (0 = one,
+    the default); the output does not depend on it, and the reference's
+    backend has no such field.
     """
 
     name = "pallas-small"
     inv_factor: bool = True
     fused_solve: bool = False
+    pack: int = 0
 
     def __post_init__(self):
-        if self.fused_solve:
-            raise NotImplementedError(
-                "fused_solve: the fused K1 solve kernel is not ported yet")
         if not self.inv_factor:
             raise ValueError("SmallK1Backend stores L⁻¹: inv_factor must "
                              "stay True")
@@ -47,6 +58,16 @@ class SmallK1Backend(DenseK1Backend):
         theta_reg = theta_inv + regP
         d = 1.0 / theta_reg
         K = normal_matrix(A, d, regD)
-        Linv, ok = identity_where_failed(batched_cholesky_inverse(K))
+        Linv, ok = identity_where_failed(
+            batched_cholesky_inverse(K, pack=self.pack))
         return (DenseK1State(A=A, d=d, theta_reg=theta_reg, regD=regD,
                              L=Linv), ok)
+
+    def solve(self, state: DenseK1State, xi_p, xi_d):
+        A = state.A
+        if not (self.fused_solve and A.dtype == torch.float32
+                and A.shape[-2] <= MAX_M):
+            return DenseK1Backend.solve(self, state, xi_p, xi_d)
+        args = (A, state.L, state.d, state.theta_reg, state.regD, xi_p, xi_d)
+        return batched_fused_k1_solve(*(t.contiguous() for t in args),
+                                      refine=self.refinement_steps)

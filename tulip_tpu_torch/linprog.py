@@ -130,14 +130,16 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
     ``device`` and ``dtype`` ("float32" or "float64") place the batched
     solve. The default backend is :class:`SmallK1Backend` (the chol-inv
     kernel) for float32 on CUDA, else ``DenseK1Backend(inv_factor=True)``.
-    Only ``algorithm="HSD"`` is ported.
+    ``algorithm`` is "HSD" or "MPC".
 
     Returns a list of :class:`LinprogResult` (duals in standard-form row
     order: equality rows first, then inequality rows).
     """
-    from .ipm.batch import batched_hsd_solve, bucket_dim, stack_lps_host
+    from .ipm.batch import (batched_hsd_solve, batched_mpc_solve,
+                            bucket_dim, stack_lps_host)
     from .ipm.data import standard_form_arrays
     from .ipm.hsd import HSDOptions
+    from .ipm.mpc import MPCOptions
     from .kkt import DenseK1Backend, SmallK1Backend
     from .model import TORCH_DTYPES, _extract_solution, _host_lane, _to_numpy
     from .presolve import PresolveData, postsolve
@@ -145,9 +147,7 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
     from .solution import Solution
 
     algorithm = algorithm.upper()
-    if algorithm == "MPC":
-        raise NotImplementedError("algorithm='MPC' is not ported yet")
-    if algorithm != "HSD":
+    if algorithm not in ("HSD", "MPC"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
 
     params = params or Parameters()
@@ -207,13 +207,17 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
                 inv_factor=True,
                 refinement_steps=1 if dt == np.float32 else 0)
     ipm = params.IPM.resolved(dt)
-    opts = HSDOptions(
+    opt_kw = dict(
         TolerancePFeas=ipm.TolerancePFeas, ToleranceDFeas=ipm.ToleranceDFeas,
         ToleranceRGap=ipm.ToleranceRGap, ToleranceIFeas=ipm.ToleranceIFeas,
         IterationsLimit=ipm.IterationsLimit,
         PRegMin=max(ipm.PRegMin, 1e-6 if dt == np.float32 else 0.0),
         DRegMin=max(ipm.DRegMin, 1e-6 if dt == np.float32 else 0.0),
     )
+    if algorithm == "HSD":
+        opts, solver = HSDOptions(**opt_kw), batched_hsd_solve
+    else:
+        opts, solver = MPCOptions(**opt_kw), batched_mpc_solve
 
     # Shape buckets: group lanes by a pad-to-next-power-of-two envelope,
     # one batched solve per bucket, so one outlier instance inflates only
@@ -228,7 +232,7 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
         lanes = buckets[key]
         stacked = stack_lps_host([dats[i] for i in lanes], device=device,
                                  dtype=tdtype, m_pad=key[0], n_pad=key[1])
-        out_b = _to_numpy(batched_hsd_solve(backend, opts, stacked))
+        out_b = _to_numpy(solver(backend, opts, stacked))
         for pos, lane in enumerate(lanes):
             lane_out[lane] = (out_b, pos)
 

@@ -7,11 +7,12 @@ numpy helpers (``_trivial_solve``, ``_certificate_tol``,
 
 The IPM runs on ``Model(device=...)`` (default ``"cuda"``); ``Parameters``
 is shared with the JAX package byte for byte, so the device is not one
-of its fields. Routes of the reference that are not ported yet raise
-``NotImplementedError`` before any device work, at the branch where the
-reference would leave the dense path: the sparse-first data path, the
-structure probe at m >= 2048 with no backend named, the K2 system, the
-``extended`` backend below 1e-9 in f64, and ``Algorithm="MPC"``.
+of its fields. ``IPM.Algorithm`` picks HSD or MPC. Routes of the
+reference that are not ported yet raise ``NotImplementedError`` before any
+device work, at the branch where the reference would leave the dense path:
+the sparse-first data path, the structure probe at m >= 2048 with no
+backend named, the K2 system, and the ``extended`` backend below 1e-9 in
+f64.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from functools import partial
 from types import SimpleNamespace
 from typing import Optional
 
@@ -27,6 +29,7 @@ import torch
 
 from .ipm.data import lp_data_from_problem
 from .ipm.hsd import HSDOptions, hsd_solve
+from .ipm.mpc import MPCOptions, mpc_solve
 from .kkt import make_backend
 from .params import Parameters
 from .presolve import PresolveData, postsolve
@@ -245,19 +248,16 @@ class Model:
                           "pallas-small": 1, "extended": 2,
                           "extended-dd": 1}.get(backend_name or "", 0)
         backend = make_backend(backend_name, system, refinement)
-        algo = params.IPM.Algorithm.upper()
-        if algo == "MPC":
-            raise NotImplementedError(
-                "Algorithm='MPC' is not ported yet: ROADMAP queue 1, item 4 "
-                "(ipm/mpc.py)")
-        if algo != "HSD":
+        if params.IPM.Algorithm.upper() not in ("HSD", "MPC"):
             raise ValueError(f"Unknown IPM algorithm {params.IPM.Algorithm!r}")
         # Introspection: which linear solver ran (reference: HSD.jl:214-230).
         self.kkt_backend = backend
         return backend, ipm_opts
 
     def _run_ipm(self, dat, backend, ipm_opts, params):
-        opts = HSDOptions(
+        """HSD or MPC with options built as the reference builds them
+        (``tulip_tpu/model.py:324-367``)."""
+        common = dict(
             TolerancePFeas=ipm_opts.TolerancePFeas,
             ToleranceDFeas=ipm_opts.ToleranceDFeas,
             ToleranceRGap=ipm_opts.ToleranceRGap,
@@ -267,17 +267,23 @@ class Model:
             CorrectionLimit=ipm_opts.CorrectionLimit,
             StepDampFactor=ipm_opts.StepDampFactor,
             GammaMin=ipm_opts.GammaMin,
-            CentralityOutlierThreshold=ipm_opts.CentralityOutlierThreshold,
             PRegMin=ipm_opts.PRegMin,
             DRegMin=ipm_opts.DRegMin,
             OutputLevel=max(params.OutputLevel, ipm_opts.OutputLevel),
-            MehrotraStart=ipm_opts.MehrotraStart,
-            FastPredictor=ipm_opts.FastPredictor,
-            FastCorrections=ipm_opts.FastCorrections,
         )
+        if params.IPM.Algorithm.upper() == "MPC":
+            run = partial(mpc_solve, dat, backend, MPCOptions(**common))
+        else:
+            run = partial(hsd_solve, dat, backend, HSDOptions(
+                **common,
+                CentralityOutlierThreshold=(
+                    ipm_opts.CentralityOutlierThreshold),
+                MehrotraStart=ipm_opts.MehrotraStart,
+                FastPredictor=ipm_opts.FastPredictor,
+                FastCorrections=ipm_opts.FastCorrections))
         t_ = time.time()
         with _profile_trace(params.ProfileDir, self.device):
-            state = hsd_solve(dat, backend, opts)
+            state = run()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.timings["ipm"] = time.time() - t_

@@ -4,7 +4,9 @@ Counterpart of ``tulip_tpu/ops/chol.py``. ``batched_cholesky_inverse``
 returns L⁻¹ with K = L Lᵀ for a batch of SPD matrices K (B, m, m):
 
 - on a CUDA tensor it launches ``csrc/chol_inv.cu`` (built at first use,
-  see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback;
+  see :mod:`tulip_tpu_torch._build`), one instance per thread block or,
+  with ``pack=p``, p instances per block (the port of the reference's
+  lane-packed kernel), or raises; there is no fallback;
 - on a CPU tensor it runs :func:`batched_cholesky_inverse_plain`, the
   same function in plain PyTorch.
 
@@ -20,8 +22,13 @@ import ctypes
 import torch
 
 # Launches of the CUDA kernel since the process started (or the caller last
-# reset it); the plain version does not count.
+# reset it), one instance per block and packed (several instances per
+# block) apart; the plain version does not count. SHAPES holds the (B, m,
+# instances per block) of every launch, so that a caller can hold the
+# kernel against its plain version at the shapes a run gave it.
 KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES_PACKED = 0
+SHAPES: set = set()
 
 MAX_M = 1024
 
@@ -40,8 +47,8 @@ def batched_cholesky_inverse_plain(K: torch.Tensor) -> torch.Tensor:
                                       float("nan"))
 
 
-def _launch(K: torch.Tensor) -> torch.Tensor:
-    global KERNEL_LAUNCHES
+def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_PACKED
     from .. import _build
 
     if K.dtype != torch.float32:
@@ -53,19 +60,37 @@ def _launch(K: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_inv kernel takes 1 <= m <= {MAX_M}, got {m}")
     if not K.is_contiguous():
         raise ValueError("chol_inv kernel needs a contiguous K")
+    if pack < 0:
+        raise ValueError(f"pack must be >= 0, got {pack}")
     out = torch.empty_like(K)
     if B == 0:
         return out
     lib = _build.load("chol_inv")
-    fn = lib.tulip_chol_inv_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(K.device).cuda_stream
-    err = fn(K.data_ptr(), out.data_ptr(), B, m, K.device.index, stream)
+    used = 1
+    if pack <= 1:
+        fn = lib.tulip_chol_inv_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(K.data_ptr(), out.data_ptr(), B, m, K.device.index, stream)
+    else:
+        fn = lib.tulip_chol_inv_packed_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        got = ctypes.c_int(0)
+        err = fn(K.data_ptr(), out.data_ptr(), B, m, pack, K.device.index,
+                 stream, ctypes.byref(got))
+        used = got.value
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
-    KERNEL_LAUNCHES += 1
+    if used > 1:
+        KERNEL_LAUNCHES_PACKED += 1
+    else:
+        KERNEL_LAUNCHES += 1
+    SHAPES.add((B, m, used))
     return out
 
 
@@ -75,13 +100,21 @@ def batched_cholesky_inverse(K: torch.Tensor, block: int = 0,
 
     CUDA tensors go to the hand-written kernel (float32, contiguous,
     m ≤ 1024; anything else raises); CPU tensors to the plain version.
-    ``block`` and ``pack`` exist for parity with
-    ``batched_cholesky_inverse_pallas``; they tune the TPU kernel's layout
-    and have no meaning here, so every value gives the same output.
+
+    ``pack`` is the count of instances per thread block, the counterpart
+    of the reference's lane packing (``tulip_tpu/ops/chol.py:95``): 0 or 1
+    gives one instance per block; p > 1 puts p instances in a block, each
+    on its own group of threads. Where p instances do not fit in one
+    block's shared memory (always for m > 224), its threads or its named
+    barriers, the kernel's launcher lowers p to what fits, down to 1, as
+    the reference's ``_pick_block_packed`` shrinks its block to the VMEM
+    budget. The output does not depend on ``pack``. ``block`` is the TPU
+    kernel's count of instances per grid step; the CUDA kernel has no such
+    step, so it is accepted for parity and unused.
     """
-    del block, pack
+    del block
     if K.device.type == "cuda":
-        return _launch(K)
+        return _launch(K, pack)
     if K.device.type == "cpu":
         return batched_cholesky_inverse_plain(K)
     raise ValueError(f"unsupported device {K.device}")
