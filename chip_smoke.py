@@ -11,13 +11,15 @@ Phases, each of which exits non-zero on a failed check:
    started together) and the C++ host engines of ``native/``
    (``make -C native``) from the checkout;
 3. kernel: the chol-inv kernel against its plain PyTorch version on SPD
-   batches, a non-SPD lane, and kernel vs plain time at (2048, 48),
-   (2048, 64) and (1, 1024); the packed launch (p instances per block) at
+   batches (its blocked path at m > 224 included, at ragged m too), a
+   non-SPD lane in each path, and kernel vs plain time at (2048, 48),
+   (2048, 64), (4, 256) and (1, 1024); the packed launch (p instances per block) at
    (2048, 48) with p = 2, 4 and (2048, 64) with p = 2 against the plain
    version and kernel 1, a non-SPD lane inside a packed block, and its time
    beside kernel 1's;
 3b. kernel: the scaled-Gram kernel against its plain version at four
-   shapes up to (1, 4096, 6240), and kernel vs plain time there;
+   shapes up to (1, 4096, 6240), both against the plain version in f64 at
+   (2, 1000, 1500), and kernel vs plain vs one-einsum time at the largest;
 3c. kernel: the fused K1 solve against its plain version at (2048, 48, 96),
    (7, 48, 96), (4, 256, 512), (1, 1024, 2048) and (2, 64, 8192) (its
    n-long vectors in device memory), refine 0 (three seeds, held against
@@ -55,7 +57,8 @@ Phases, each of which exits non-zero on a failed check:
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
    4-9 gave the fused solve and every (B, m, instances per block) they gave
    the chol-inv kernel, held against the plain version on seeded inputs of
-   that shape with phase 3's and 3c's bars.
+   that shape with phase 3's and 3c's bars; the chol-inv shapes must
+   include the blocked path's (1, 1024) and an m = 256 bucket.
 
 Phases 4-9 are the main path: every kernel's launch count is reset just
 before each of them and read just after. The last lines are the card's
@@ -84,8 +87,11 @@ import torch
 TOL = 3e-4
 OPTIMAL = 2  # TerminationStatus.OPTIMAL
 KERNEL_SHAPES = [(1, 8), (7, 48), (2048, 48), (2048, 64), (64, 100),
-                 (8, 224), (16, 256), (4, 1024)]
-TIMED_SHAPES = [(2048, 48), (2048, 64), (1, 1024)]
+                 (8, 224), (1, 225), (16, 256), (3, 300), (2, 512),
+                 (1, 1000), (4, 1024)]
+TIMED_SHAPES = [(2048, 48), (2048, 64), (4, 256), (1, 1024)]
+BLOCKED_TIMED = (1, 1024)
+GRAM_F64_SHAPE = (2, 1000, 1500)
 GRAM_SHAPES = [(1, 37, 200), (3, 300, 520), (2, 1000, 1500),
                (1, 4096, 6240)]
 GRAM_TIMED = (1, 4096, 6240)
@@ -102,9 +108,10 @@ FUSED_TIMED = (2048, 48, 96)
 # presolve). scipy codes: 0 optimal, 4 numerical, 3 unbounded.
 MPC_ENTRY_STATUS = [0] * 62 + [4, 3]
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
-# memory bandwidth, and float32 outside the tensor cores.
+# memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_TF32_S = 495e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -141,11 +148,12 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(ts)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_F32_S):
     """(least time in ms, what bounds it): the bytes the function must
-    move over the memory rate, or its float32 operations over the peak
-    rate outside the tensor cores, whichever is larger."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    move over the memory rate, or its operations over the peak rate of
+    the unit that does them (float32 outside the tensor cores unless
+    ``peak`` says otherwise), whichever is larger."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -166,8 +174,10 @@ def fused_bound(B, m, n, refine):
 
 def gram_bound(B, m, n):
     """A and d read, K written; the lower half m(m+1)n of 2m²n operations,
-    since K is symmetric."""
-    return bound_ms(B * (m * n + n + m * m) * 4, B * m * (m + 1) * n)
+    since K is symmetric, three times over (the kernel makes each f32
+    product of three TF32 products), at the tensor cores' TF32 rate."""
+    return bound_ms(B * (m * n + n + m * m) * 4, 3 * B * m * (m + 1) * n,
+                    PEAK_TF32_S)
 
 
 def make_raw_instances(nb, m, n, seed=0):
@@ -233,6 +243,14 @@ def phase_kernel(device):
     check(finite.tolist() == [True, True, True, False, True, True, True],
           f"non-SPD lane 3: finite lanes {finite.tolist()}")
     log("  non-SPD lane: non-finite in that lane only")
+    K = spd_batch(3, 512, seed=1, device=device)
+    K[1] = -K[1]
+    finite = torch.isfinite(batched_cholesky_inverse(K)).all(-1).all(-1)
+    check(finite.tolist() == [True, False, True],
+          f"blocked path, non-SPD lane 1 of (3, 512): finite lanes "
+          f"{finite.tolist()}")
+    log("  non-SPD lane at (3, 512), the blocked path: non-finite in that "
+        "lane only")
 
     times = {}
     for B, m in TIMED_SHAPES:
@@ -424,6 +442,20 @@ def phase_gram(device):
             f"{errs[(B, m, n)]:.3e}, per lane / max|K| <= {rel:.3e}")
         check(rel <= 1e-5, f"scaled_gram error {rel} > 1e-5 max|K| at "
               f"{(B, m, n)}")
+        if (B, m, n) == GRAM_F64_SHAPE:
+            # Both f32 results against the same product in f64: the three
+            # TF32 products must cost no accuracy worth the name.
+            exact = scaled_gram_plain(A.double(), d.double())
+            scale = exact.abs().amax(dim=(-1, -2))
+            far_k = ((got.double() - exact).abs().amax(dim=(-1, -2))
+                     / scale).max().item()
+            far_p = ((want.double() - exact).abs().amax(dim=(-1, -2))
+                     / scale).max().item()
+            log(f"  scaled_gram {GRAM_F64_SHAPE} from the plain version in "
+                f"f64, per lane / max|K|: kernel {far_k:.3e}, plain f32 "
+                f"{far_p:.3e}")
+            check(far_k <= 4 * far_p, f"scaled_gram is {far_k} from the f64 "
+                  f"product, over 4x the plain f32 version's {far_p}")
 
     B, m, n = GRAM_TIMED
     A, d = gram_inputs(B, m, n, seed=5, device=device)
@@ -436,9 +468,11 @@ def phase_gram(device):
     log(f"  time {GRAM_TIMED}: kernel {tk:.4f} ms, plain ((A*d) @ A^T, "
         f"cuBLAS f32) {tp:.4f} ms, library (one einsum) {tl:.4f} ms, median "
         f"of 20; 2*m^2*n = {full:.4e} FLOP -> kernel {full / tk / 1e9:.3f}, "
-        f"plain {full / tp / 1e9:.3f} TFLOP/s (the kernel computes the lower "
-        f"tiles only, {full / 2 / tk / 1e9:.3f} TFLOP/s of its own work); "
-        f"bound {bound:.4f} ms ({by}), kernel at {bound / tk:.4f} of it")
+        f"plain {full / tp / 1e9:.3f} TFLOP/s of f32 work (the kernel "
+        f"computes the lower tiles only, three TF32 products a term: "
+        f"{3 * full / 2 / tk / 1e9:.3f} TFLOP/s of tensor-core work); bound "
+        f"{bound:.4f} ms ({by}, 3·m(m+1)n at the TF32 peak), kernel at "
+        f"{bound / tk:.4f} of it")
     return errs, (tk, tp, tl)
 
 
@@ -668,6 +702,7 @@ def profile_solve(solve, path, wall_s):
 
 
 COUNTERS = {"chol_inv": ("chol", "KERNEL_LAUNCHES"),
+            "chol_inv_blocked": ("chol", "KERNEL_LAUNCHES_BLOCKED"),
             "chol_inv_packed": ("chol", "KERNEL_LAUNCHES_PACKED"),
             "fused_k1_solve": ("solve", "KERNEL_LAUNCHES"),
             "scaled_gram": ("gram", "KERNEL_LAUNCHES")}
@@ -842,6 +877,8 @@ def main(argv=None):
     with count.phase() as n5:
         res = batch_linprog(probs)
     check(n5["chol_inv"] > 0, "entry: the chol-inv kernel never launched")
+    check(n5["chol_inv_blocked"] > 0, "entry: the chol-inv kernel's blocked "
+          "path (the m = 256 bucket) never ran")
     worst_e = check_entry(probs, res, refs_entry)
     log(f"[5] entry: batch_linprog on {len(probs)} problems, statuses match "
         f"HiGHS, worst rel obj err {worst_e:.3e}; launches {n5}")
@@ -909,8 +946,8 @@ def main(argv=None):
     check(st32.name == "OPTIMAL", f"multiperiod_lp(1024) f32: {st32.name}")
     check(mod32.kkt_backend.name == "pallas-small", "f32 default did not "
           f"route to 'pallas-small' but {mod32.kkt_backend.name!r}")
-    check(n7["chol_inv"] > 0, "f32 default single LP: the chol-inv kernel "
-          "never launched")
+    check(n7["chol_inv_blocked"] > 0, "f32 default single LP: the chol-inv "
+          "kernel's blocked path never ran")
     err32 = check_objective("multiperiod_lp(1024) f32", z32, ref_small, 1e-3)
     log(f"  multiperiod_lp(1024) f32 default (pallas-small): objective "
         f"{z32!r} vs HiGHS (rel {err32:.3e}); {describe(mod32, wall32)}; "
@@ -989,8 +1026,14 @@ def main(argv=None):
         hold_fused(B, m, n, refine, [B + m + n], device)
     for B, m, p in sorted(count.shapes["chol"]):
         hold_chol(B, m, p, B + m, device)
+    blocked = {(B, m) for B, m, _ in count.shapes["chol"]
+               if m > count.mods["chol"].SHARED_MAX_M}
+    check(BLOCKED_TIMED in blocked and any(m == 256 for _, m in blocked),
+          f"main path: the blocked chol-inv shapes {sorted(blocked)} lack "
+          f"{BLOCKED_TIMED} or an m = 256 bucket")
 
     tk, tp = times[(2048, 48)]
+    bk, bp = times[BLOCKED_TIMED]
     pk_err, pk_ms, _, pk_plain = packed[(2048, 48, PACK)]
     gk, gp, gl = gram_times
     fk, fp = fused_times
@@ -998,6 +1041,9 @@ def main(argv=None):
     for name, src, repl, err_, ms, plain_ms, bound, lib in [
             ("chol_inv", "chol_inv.cu", "tulip_tpu/ops/chol.py:42",
              errs[(2048, 48)], tk, tp, chol_bound(2048, 48), None),
+            ("chol_inv_blocked", "chol_inv.cu", "tulip_tpu/ops/chol.py:42",
+             hold_chol(*BLOCKED_TIMED, 0, 0, device), bk, bp,
+             chol_bound(*BLOCKED_TIMED), None),
             ("chol_inv_packed", "chol_inv.cu", "tulip_tpu/ops/chol.py:95",
              pk_err, pk_ms, pk_plain, chol_bound(2048, 48), None),
             ("fused_k1_solve", "fused_solve.cu", "tulip_tpu/ops/solve.py:34",

@@ -146,3 +146,59 @@ def test_registry_names():
         make_backend(None, "K2")
     with pytest.raises(ValueError):
         make_backend("dense", "K2")
+
+
+def tf32_round(x):
+    """Round-to-nearest (ties away, as ``cvt.rna.tf32.f32``) of an f32
+    tensor to TF32's 10 explicit mantissa bits, by integer masking."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_cut(x):
+    """An f32 tensor with its last 13 mantissa bits dropped: what the
+    tensor cores read of an operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_gram(A, d, passes):
+    """The scaled-Gram product as the tensor cores form it, emulated: every
+    operand an exact TF32 number, products summed in f32. ``passes == 3`` is
+    the CUDA kernel's split (hi = x rounded to TF32, lo = x − hi cut to
+    TF32 as the tensor cores cut an operand; lo·hi + hi·lo + hi·hi, small
+    terms first), ``passes == 1`` plain TF32."""
+    Ad = A * d.unsqueeze(-2)
+    ahi, bhi = tf32_round(Ad), tf32_round(A)
+    if passes == 1:
+        return ahi @ bhi.transpose(-1, -2)
+    alo, blo = tf32_cut(Ad - ahi), tf32_cut(A - bhi)
+    bt, blt = bhi.transpose(-1, -2), blo.transpose(-1, -2)
+    return (alo @ bt + ahi @ blt) + ahi @ bt
+
+
+def test_three_pass_tf32_split_holds_the_bar_one_pass_does_not():
+    """Why the kernel pays for three tensor-core products: on d spanning
+    six decades the split is within 1e-5·max|K| of the plain f32 product
+    (and as close to the f64 product as plain f32 is, within 4×), while a
+    single TF32 pass misses the bar."""
+    A, d = (torch.from_numpy(x) for x in gram_inputs(2, 300, 520, seed=9))
+    want = scaled_gram_plain(A, d)
+    exact = scaled_gram_plain(A.double(), d.double())
+    scale = want.abs().amax(dim=(-1, -2))
+    err3 = (tf32_gram(A, d, 3) - want).abs().amax(dim=(-1, -2)) / scale
+    err1 = (tf32_gram(A, d, 1) - want).abs().amax(dim=(-1, -2)) / scale
+    assert (err3 <= 1e-5).all(), err3
+    assert (err1 > 1e-5).all(), err1
+    far3 = (tf32_gram(A, d, 3).double() - exact).abs().amax(dim=(-1, -2))
+    far = (want.double() - exact).abs().amax(dim=(-1, -2))
+    assert (far3 <= 4 * far).all(), (far3, far)
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10,
+                      -3.0 - 2.0 ** -10, 0.0, 1e-3])
+    r = tf32_round(x)
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+    assert r[:5].tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                              -3.0 - 2.0 ** -9, 0.0]
+    assert abs(r[5].item() - 1e-3) <= 1e-3 * 2.0 ** -11

@@ -63,6 +63,48 @@ def test_chol_inv_kernel_nonspd_lane(cuda):
     assert finite == [True, True, True, True, False, True]
 
 
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("m", [225, 256, 300, 512, 1000, 1024])
+def test_blocked_chol_inv_matches_plain(cuda, B, m):
+    """The blocked path (m > 224, every m and not only the buckets' 256,
+    512 and 1024): within 1e-4 relative Frobenius of the plain version per
+    instance, exact zeros above the diagonal; with B = 3 the middle
+    instance is not positive definite and is non-finite alone."""
+    K = spd_batch(B, m, seed=B + m, device=cuda)
+    if B == 3:
+        K[1] = -K[1]
+    before = (chol.KERNEL_LAUNCHES, chol.KERNEL_LAUNCHES_BLOCKED)
+    got = batched_cholesky_inverse(K)
+    torch.cuda.synchronize()
+    assert (chol.KERNEL_LAUNCHES, chol.KERNEL_LAUNCHES_BLOCKED) == (
+        before[0] + 1, before[1] + 1)
+    assert (B, m, 1) in chol.SHAPES
+    good = [0, 2] if B == 3 else [0]
+    finite = torch.isfinite(got).all(-1).all(-1).tolist()
+    assert finite == [b in good for b in range(B)]
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    want = batched_cholesky_inverse_plain(K[good])
+    rel = (torch.linalg.matrix_norm(got[good] - want)
+           / torch.linalg.matrix_norm(want)).max().item()
+    assert rel <= 1e-4
+
+
+def test_blocked_chol_inv_zero_pivot(cuda):
+    """A zero pivot (1 / sqrt(0) = inf) also ends non-finite, in its own
+    instance only."""
+    K = spd_batch(2, 320, seed=5, device=cuda)
+    K[0, 40, :] = 0.0
+    K[0, :, 40] = 0.0
+    got = batched_cholesky_inverse(K)
+    assert torch.isfinite(got).all(-1).all(-1).tolist() == [False, True]
+
+
+def test_shared_range_does_not_count_as_blocked(cuda):
+    before = chol.KERNEL_LAUNCHES_BLOCKED
+    batched_cholesky_inverse(spd_batch(2, 224, seed=6, device=cuda))
+    assert chol.KERNEL_LAUNCHES_BLOCKED == before
+
+
 def test_chol_inv_kernel_refuses(cuda):
     K = spd_batch(2, 16, seed=2, device=cuda)
     with pytest.raises(TypeError):
@@ -106,7 +148,9 @@ def gram_inputs(B, m, n, seed, device):
 
 
 @pytest.mark.parametrize("B,m,n", [(1, 1, 1), (1, 37, 200), (3, 300, 520),
-                                   (2, 129, 7), (2, 1000, 1500)])
+                                   (2, 129, 7), (2, 1000, 1500),
+                                   (1, 130, 70), (2, 257, 1000),
+                                   (1, 4096, 6240)])
 def test_scaled_gram_kernel_matches_plain(cuda, B, m, n):
     A, d = gram_inputs(B, m, n, seed=m, device=cuda)
     before = gram.KERNEL_LAUNCHES
@@ -116,9 +160,22 @@ def test_scaled_gram_kernel_matches_plain(cuda, B, m, n):
     want = scaled_gram_plain(A, d)
     # The kernel mirrors its lower tiles: K is exactly symmetric.
     assert torch.equal(got, got.transpose(-1, -2))
-    # f32 sums of n terms in another order than cuBLAS's, per lane.
+    # Three TF32 products per term summed in f32 in another order than
+    # cuBLAS's, per lane.
     err = (got - want).abs().amax(dim=(-1, -2))
     assert (err <= 1e-5 * want.abs().amax(dim=(-1, -2))).all()
+
+
+def test_scaled_gram_kernel_takes_an_unaligned_view(cuda):
+    """A and d that start off a 16-byte boundary go through the kernel's
+    4-byte copies."""
+    A, d = gram_inputs(1, 70, 129, seed=4, device=cuda)
+    A1, d1 = A.flatten()[1:1 + 69 * 128], d.flatten()[1:129]
+    A1, d1 = A1.view(1, 69, 128), d1.view(1, 128)
+    got = scaled_gram(A1, d1)
+    want = scaled_gram_plain(A1, d1)
+    assert torch.equal(got, got.transpose(-1, -2))
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_scaled_gram_kernel_refuses(cuda):

@@ -4,9 +4,12 @@ Counterpart of ``tulip_tpu/ops/chol.py``. ``batched_cholesky_inverse``
 returns L⁻¹ with K = L Lᵀ for a batch of SPD matrices K (B, m, m):
 
 - on a CUDA tensor it launches ``csrc/chol_inv.cu`` (built at first use,
-  see :mod:`tulip_tpu_torch._build`), one instance per thread block or,
+  see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback. Up
+  to m = 224 that is one instance per thread block in shared memory or,
   with ``pack=p``, p instances per block (the port of the reference's
-  lane-packed kernel), or raises; there is no fallback;
+  lane-packed kernel); above, a blocked factorization whose panel
+  products, trailing updates and block inverse are spread over many
+  thread blocks per instance;
 - on a CPU tensor it runs :func:`batched_cholesky_inverse_plain`, the
   same function in plain PyTorch.
 
@@ -23,14 +26,20 @@ import torch
 
 # Launches of the CUDA kernel since the process started (or the caller last
 # reset it), one instance per block and packed (several instances per
-# block) apart; the plain version does not count. SHAPES holds the (B, m,
-# instances per block) of every launch, so that a caller can hold the
-# kernel against its plain version at the shapes a run gave it.
+# block) apart; the plain version does not count. KERNEL_LAUNCHES_BLOCKED
+# counts those of KERNEL_LAUNCHES that took the blocked path (m >
+# SHARED_MAX_M). SHAPES holds the (B, m, instances per block) of every
+# launch, so that a caller can hold the kernel against its plain version at
+# the shapes a run gave it.
 KERNEL_LAUNCHES = 0
 KERNEL_LAUNCHES_PACKED = 0
+KERNEL_LAUNCHES_BLOCKED = 0
 SHAPES: set = set()
 
 MAX_M = 1024
+# Largest m whose instance fits in one block's shared memory; above it the
+# kernel's blocked path runs, on scratch that the wrapper allocates.
+SHARED_MAX_M = 224
 
 
 def batched_cholesky_inverse_plain(K: torch.Tensor) -> torch.Tensor:
@@ -48,7 +57,7 @@ def batched_cholesky_inverse_plain(K: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
-    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_PACKED
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_PACKED, KERNEL_LAUNCHES_BLOCKED
     from .. import _build
 
     if K.dtype != torch.float32:
@@ -67,22 +76,32 @@ def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
         return out
     lib = _build.load("chol_inv")
     stream = torch.cuda.current_stream(K.device).cuda_stream
+    need = lib.tulip_chol_inv_scratch_floats
+    need.argtypes = [ctypes.c_int, ctypes.c_int]
+    need.restype = ctypes.c_longlong
+    # The blocked path's working copy (no floats up to SHARED_MAX_M). Freed
+    # on return, which is safe: the allocator hands it out again only to
+    # work that this stream runs after the kernel.
+    scratch = torch.empty(need(B, m), dtype=K.dtype, device=K.device)
     used = 1
     if pack <= 1:
         fn = lib.tulip_chol_inv_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(K.data_ptr(), out.data_ptr(), B, m, K.device.index, stream)
+        err = fn(K.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, m,
+                 K.device.index, stream)
     else:
         fn = lib.tulip_chol_inv_packed_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+                       ctypes.c_int, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         got = ctypes.c_int(0)
-        err = fn(K.data_ptr(), out.data_ptr(), B, m, pack, K.device.index,
-                 stream, ctypes.byref(got))
+        err = fn(K.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, m,
+                 pack, K.device.index, stream, ctypes.byref(got))
         used = got.value
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
@@ -90,6 +109,7 @@ def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
         KERNEL_LAUNCHES_PACKED += 1
     else:
         KERNEL_LAUNCHES += 1
+        KERNEL_LAUNCHES_BLOCKED += m > SHARED_MAX_M
     SHAPES.add((B, m, used))
     return out
 
@@ -99,7 +119,9 @@ def batched_cholesky_inverse(K: torch.Tensor, block: int = 0,
     """L⁻¹ for a batch of SPD matrices K (B, m, m), K = L Lᵀ.
 
     CUDA tensors go to the hand-written kernel (float32, contiguous,
-    m ≤ 1024; anything else raises); CPU tensors to the plain version.
+    m ≤ 1024; anything else raises; above m = 224 its blocked path, which
+    works on B·⌈m/32⌉·32·(⌈m/32⌉·32 + 32) floats of scratch allocated
+    here); CPU tensors to the plain version.
 
     ``pack`` is the count of instances per thread block, the counterpart
     of the reference's lane packing (``tulip_tpu/ops/chol.py:95``): 0 or 1

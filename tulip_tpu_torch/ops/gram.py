@@ -11,7 +11,10 @@ the row side, as the TPU kernel applies it:
 
 The kernel computes the tiles on and below the diagonal and mirrors them,
 so its K is exactly symmetric; the plain version's is symmetric up to
-rounding. There is no diagonal term: the caller adds Rd.
+rounding. It runs on the tensor cores: each f32 product is made of three
+TF32 products of the operands' high and low parts, summed in f32, which
+keeps K within ~1e-6·max|K| of the product in f64 (the plain f32 version
+is no closer). There is no diagonal term: the caller adds Rd.
 """
 
 from __future__ import annotations
