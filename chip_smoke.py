@@ -10,13 +10,16 @@ Phases, each of which exits non-zero on a failed check:
    ``csrc/scaled_gram.cu`` and ``csrc/fused_solve.cu`` (one nvcc each,
    started together) and the C++ host engines of ``native/``
    (``make -C native``) from the checkout;
-3. kernel: the chol-inv kernel against its plain PyTorch version on SPD
-   batches (its blocked path at m > 224 included, at ragged m too), a
-   non-SPD lane in each path, and kernel vs plain time at (2048, 48),
-   (2048, 64), (4, 256) and (1, 1024); the packed launch (p instances per block) at
-   (2048, 48) with p = 2, 4 and (2048, 64) with p = 2 against the plain
-   version and kernel 1, a non-SPD lane inside a packed block, and its time
-   beside kernel 1's;
+3. kernel: the chol-inv kernel's registers, local memory and resident
+   groups an SM (shared-memory path), then the kernel against its plain
+   PyTorch version on SPD batches (its blocked path at m > 224 included,
+   at ragged m too), a non-SPD lane in each path and one that fails past
+   column 32 (in the second panel), and kernel vs plain time at
+   (2048, 48), (2048, 64), (64, 100), (8, 224), (1, 224), (4, 256) and
+   (1, 1024); the packed launch (p instances per block) at (2048, 48) with
+   p = 2, 4 and (2048, 64) with p = 2 against the plain version and the
+   unpacked launch, non-SPD lanes inside a packed block, and its time
+   beside the unpacked launch's;
 3b. kernel: the scaled-Gram kernel against its plain version at four
    shapes up to (1, 4096, 6240), both against the plain version in f64 at
    (2, 1000, 1500), and kernel vs plain vs one-einsum time at the largest;
@@ -89,7 +92,8 @@ OPTIMAL = 2  # TerminationStatus.OPTIMAL
 KERNEL_SHAPES = [(1, 8), (7, 48), (2048, 48), (2048, 64), (64, 100),
                  (8, 224), (1, 225), (16, 256), (3, 300), (2, 512),
                  (1, 1000), (4, 1024)]
-TIMED_SHAPES = [(2048, 48), (2048, 64), (4, 256), (1, 1024)]
+TIMED_SHAPES = [(2048, 48), (2048, 64), (64, 100), (8, 224), (1, 224),
+                (4, 256), (1, 1024)]
 BLOCKED_TIMED = (1, 1024)
 GRAM_F64_SHAPE = (2, 1000, 1500)
 GRAM_SHAPES = [(1, 37, 200), (3, 300, 520), (2, 1000, 1500),
@@ -231,26 +235,59 @@ def hold_chol(B, m, pack, seed, device):
     return abs_err
 
 
-def phase_kernel(device):
+def chol_occupancy(lib, m, p):
+    """(registers a thread, local bytes a thread, instances resident on an
+    SM, threads an instance) of the shared-memory path's launch at m with
+    p instances a block."""
+    import ctypes
+
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.tulip_chol_inv_occupancy(m, p, 0, *map(ctypes.byref, vals))
+    check(err == 0, f"tulip_chol_inv_occupancy({m}, {p}): cudaError {err}")
+    regs, local, blocks, group = (v.value for v in vals)
+    return regs, local, blocks * p, group
+
+
+def nonspd_lanes(B, m, pack, bad, device, past_panel=False):
+    """Lane ``bad`` of an SPD batch made non-SPD: negated whole (its first
+    pivot fails) or, with ``past_panel``, only its pivot 40 made negative
+    (its leading 40 x 40 block stays SPD, so it fails in the second
+    panel). Checks that it alone is non-finite."""
+    from tulip_tpu_torch.ops.chol import batched_cholesky_inverse
+
+    K = spd_batch(B, m, seed=1, device=device)
+    if past_panel:
+        K[bad, 40, 40] = -1.0
+    else:
+        K[bad] = -K[bad]
+    finite = torch.isfinite(batched_cholesky_inverse(K, pack=pack)) \
+        .all(-1).all(-1).tolist()
+    check(finite == [b != bad for b in range(B)],
+          f"non-SPD lane {bad} of ({B}, {m}), pack {pack}"
+          f"{', past column 32' if past_panel else ''}: finite lanes "
+          f"{finite}")
+    log(f"  non-SPD lane {bad} of ({B}, {m}), pack {pack}"
+        f"{' (fails at pivot 40)' if past_panel else ''}: non-finite in "
+        f"that lane only")
+
+
+def phase_kernel(device, lib):
     from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                           batched_cholesky_inverse_plain)
 
+    for m, p in [(48, 1), (48, PACK), (64, 1), (100, 1), (224, 1)]:
+        regs, local, groups, group = chol_occupancy(lib, m, p)
+        check(local == 0, f"chol_inv at m = {m}: {local} bytes of local "
+              f"memory a thread (spills)")
+        log(f"  shared-memory path m={m}, {p} a block: {regs} registers and "
+            f"{local} bytes of local memory a thread, {group} threads an "
+            f"instance, {groups} instances resident an SM")
     errs = {(B, m): hold_chol(B, m, 0, 0, device) for B, m in KERNEL_SHAPES}
 
-    K = spd_batch(7, 48, seed=1, device=device)
-    K[3] = -K[3]
-    finite = torch.isfinite(batched_cholesky_inverse(K)).all(-1).all(-1)
-    check(finite.tolist() == [True, True, True, False, True, True, True],
-          f"non-SPD lane 3: finite lanes {finite.tolist()}")
-    log("  non-SPD lane: non-finite in that lane only")
-    K = spd_batch(3, 512, seed=1, device=device)
-    K[1] = -K[1]
-    finite = torch.isfinite(batched_cholesky_inverse(K)).all(-1).all(-1)
-    check(finite.tolist() == [True, False, True],
-          f"blocked path, non-SPD lane 1 of (3, 512): finite lanes "
-          f"{finite.tolist()}")
-    log("  non-SPD lane at (3, 512), the blocked path: non-finite in that "
-        "lane only")
+    nonspd_lanes(7, 48, 0, 3, device)
+    for m in (48, 100):
+        nonspd_lanes(6, m, 0, 2, device, past_panel=True)
+    nonspd_lanes(3, 512, 0, 1, device)
 
     times = {}
     for B, m in TIMED_SHAPES:
@@ -266,9 +303,10 @@ def phase_kernel(device):
 
 
 def phase_packed(device):
-    """The packed launch against the plain version and kernel 1 (the same
-    arithmetic per instance, so the same bits), a non-SPD lane inside a
-    packed block, and its time beside kernel 1's at the same shape."""
+    """The packed launch against the plain version and the unpacked
+    launch (the same kernel body per instance, so the same bits), non-SPD
+    lanes inside a packed block, and its time beside the unpacked launch's
+    at the same shape."""
     from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                           batched_cholesky_inverse_plain)
 
@@ -294,13 +332,9 @@ def phase_packed(device):
             f"max|packed-unpacked| {vs_one:.3e}; packed {tpk:.4f} ms, "
             f"unpacked {tk:.4f} ms, plain {tp:.4f} ms, median of 20; bound "
             f"{bound:.4f} ms ({by}), packed at {bound / tpk:.4f} of it")
-    K = spd_batch(8, 48, seed=4, device=device)
-    K[5] = -K[5]
-    finite = torch.isfinite(batched_cholesky_inverse(K, pack=4)) \
-        .all(-1).all(-1)
-    check(finite.tolist() == [True] * 5 + [False] + [True] * 2,
-          f"packed non-SPD lane 5: finite lanes {finite.tolist()}")
-    log("  packed non-SPD lane: non-finite in that lane only")
+    nonspd_lanes(8, 48, PACK, 5, device)
+    for m in (48, 100):
+        nonspd_lanes(8, m, PACK, 5, device, past_panel=True)
     return out
 
 
@@ -805,7 +839,7 @@ def main(argv=None):
 
     # -- 3. kernels vs plain -----------------------------------------------
     log("[3] chol_inv kernel vs plain version")
-    errs, times = phase_kernel(device)
+    errs, times = phase_kernel(device, _build.load("chol_inv"))
     packed = phase_packed(device)
     log("[3b] scaled_gram kernel vs plain version")
     gram_errs, gram_times = phase_gram(device)

@@ -100,37 +100,68 @@ def test_nonspd_lane_above_shared_range():
         assert rel <= 1e-4
 
 
-def blocked_cholesky_inverse(K, nb):
-    """The CUDA kernel's blocked algorithm (csrc/chol_inv.cu, m > 224) in
-    plain PyTorch: a working copy padded to a multiple of ``nb`` with an
-    identity tail; per panel j the diagonal block factored and inverted
-    (X_jj = L_jj⁻¹), the panel below as a product L_ij = W_ij·X_jjᵀ, the
-    trailing update W_ik −= L_ij·L_kjᵀ; then L⁻¹ by blocks,
-    X_ij = −X_ii·Σ_{j≤k<i} L_ik·X_kj, and exact zeros above the diagonal."""
+def factor_invert_block(D):
+    """One diagonal block as a warp of the CUDA kernel factors it: a
+    right-looking Cholesky of the lower triangle of D (B, nb, nb) with
+    r = 1/√p per pivot (NaN past a non-positive one), then X = L⁻¹ by
+    forward substitution. Returns (L, X)."""
+    A = torch.tril(D)
+    nb = D.shape[-1]
+    r = torch.empty(D.shape[:-1], dtype=D.dtype)
+    for j in range(nb):
+        r[:, j] = 1.0 / torch.sqrt(A[:, j, j])
+        A[:, j:, j] = A[:, j:, j] * r[:, j, None]
+        col = A[:, j + 1:, j]
+        A[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+    L = torch.tril(A)
+    X = torch.zeros_like(D)
+    eye = torch.eye(nb, dtype=D.dtype)
+    for i in range(nb):
+        X[:, i] = (eye[i] - (L[:, i, None, :i] @ X[:, :i])[:, 0]) \
+            * r[:, i, None]
+    return L, X
+
+
+def blocked_cholesky_inverse(K, nb, pad="matrix"):
+    """The CUDA kernel's algorithm (csrc/chol_inv.cu) in plain PyTorch:
+    per panel j the diagonal block factored and inverted (X_jj = L_jj⁻¹),
+    the panel below as a product L_ij = W_ij·X_jjᵀ, the trailing update
+    W_ik −= L_ij·L_kjᵀ; then L⁻¹ by blocks,
+    X_ij = −X_ii·Σ_{j≤k<i} L_ik·X_kj, and exact zeros above the diagonal.
+
+    ``pad="matrix"`` is the blocked path (m > 224): a working copy padded to
+    a multiple of ``nb`` with an identity tail. ``pad="block"`` is the
+    shared-memory path (m ≤ 224): nothing is padded in the matrix; the
+    ragged last diagonal block is factored inside its own nb×nb block whose
+    tail rows are the identity, and the last block row and column are
+    ragged. (That path applies L_jj⁻¹ and X_ii by substitution inside each
+    block, in the column-at-a-time order: the same recurrences, rounded as
+    the column-at-a-time kernel rounds them.)"""
     B, m, _ = K.shape
-    mp = -(-m // nb) * nb
-    W = torch.eye(mp, dtype=K.dtype).repeat(B, 1, 1)
-    W[:, :m, :m] = K
-    eye = torch.eye(nb, dtype=K.dtype).expand(B, nb, nb)
+    if pad == "matrix":
+        mp = -(-m // nb) * nb
+        W = torch.eye(mp, dtype=K.dtype).repeat(B, 1, 1)
+        W[:, :m, :m] = K
+        return blocked_cholesky_inverse(W, nb, pad="block")[:, :m, :m]
+    W = K.clone()
+    blocks = [(a, min(a + nb, m)) for a in range(0, m, nb)]
     Xd = []
-    for j in range(mp // nb):
-        a, b = j * nb, (j + 1) * nb
-        Ljj = torch.linalg.cholesky_ex(torch.tril(W[:, a:b, a:b]))[0]
-        Xd.append(torch.linalg.solve_triangular(Ljj, eye, upper=False))
-        if b < mp:
-            W[:, b:, a:b] = W[:, b:, a:b] @ Xd[j].transpose(1, 2)
+    for a, b in blocks:
+        D = torch.eye(nb, dtype=K.dtype).repeat(B, 1, 1)
+        D[:, :b - a, :b - a] = W[:, a:b, a:b]
+        Xd.append(factor_invert_block(D)[1][:, :b - a, :b - a])
+        if b < m:
+            W[:, b:, a:b] = W[:, b:, a:b] @ Xd[-1].transpose(1, 2)
             P = W[:, b:, a:b]
             W[:, b:, b:] -= P @ P.transpose(1, 2)
     X = torch.zeros_like(W)
-    nblk = mp // nb
-    for j in range(nblk):
-        cj = slice(j * nb, (j + 1) * nb)
-        X[:, cj, cj] = Xd[j]
-        for i in range(j + 1, nblk):
-            ri = slice(i * nb, (i + 1) * nb)
-            S = W[:, ri, j * nb:i * nb] @ X[:, j * nb:i * nb, cj]
-            X[:, ri, cj] = -Xd[i] @ S
-    return X[:, :m, :m]
+    for j, (a, b) in enumerate(blocks):
+        X[:, a:b, a:b] = Xd[j]
+        for i in range(j + 1, len(blocks)):
+            ra, rb = blocks[i]
+            S = W[:, ra:rb, a:ra] @ X[:, a:ra, a:b]
+            X[:, ra:rb, a:b] = -Xd[i] @ S
+    return X
 
 
 @pytest.mark.parametrize("nb", [32, 64])
@@ -148,3 +179,53 @@ def test_blocked_recurrences_match_plain(B, m, nb):
     rel = (torch.linalg.matrix_norm(got32.double() - want)
            / torch.linalg.matrix_norm(want))
     assert rel.max() <= 1e-4
+
+
+def hold_to_reference(got, ref, m):
+    """The bars of the f32 kernel against the Pallas kernel: atol 5e-5 up
+    to m = 64, relative Frobenius 1e-4 per instance above."""
+    if m <= 64:
+        np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0)
+    else:
+        rel = (np.linalg.norm(got - ref, axis=(1, 2))
+               / np.linalg.norm(ref, axis=(1, 2)))
+        assert rel.max() <= 1e-4, rel
+
+
+@pytest.mark.parametrize("m", [1, 8, 31, 32, 33, 48, 64, 65, 100, 224])
+def test_shared_path_recurrences_match_pallas_kernel(m):
+    # The CUDA kernel's shared-memory path (m ≤ 224): 32-column panels, the
+    # ragged last one padded in its own block, L⁻¹ by blocks. In f32
+    # against the Pallas kernel, and in f64 against the plain version at
+    # 1e-5·max|L⁻¹|, so that the bar checks the recurrences, not rounding.
+    K = spd_batch(3, m, seed=100 + m)
+    ref = np.asarray(batched_cholesky_inverse_pallas(jnp.asarray(K),
+                                                     interpret=True))
+    got = blocked_cholesky_inverse(torch.from_numpy(K), 32, pad="block")
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    hold_to_reference(got.numpy(), ref, m)
+    K64 = torch.from_numpy(K).double()
+    got64 = blocked_cholesky_inverse(K64, 32, pad="block")
+    want = chol.batched_cholesky_inverse_plain(K64)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((got64 - want).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("m", [48, 100])
+def test_shared_path_nonspd_past_first_panel(m):
+    # Lane 2's leading 40×40 block is SPD and its pivot 40 is negative: it
+    # fails in the second panel, past the identity rows that pad a ragged
+    # panel. Non-finite in that lane alone, in the emulation, the plain
+    # version and the Pallas kernel; the other lanes match.
+    K = spd_batch(4, m, seed=m)
+    K[2, 40, 40] = -1.0
+    ref = np.asarray(batched_cholesky_inverse_pallas(jnp.asarray(K),
+                                                     interpret=True))
+    got = blocked_cholesky_inverse(torch.from_numpy(K), 32,
+                                   pad="block").numpy()
+    plain = batched_cholesky_inverse(torch.from_numpy(K)).numpy()
+    for out in (got, ref, plain):
+        assert np.isfinite(out).all(axis=(1, 2)).tolist() == [True, True,
+                                                              False, True]
+    good = [0, 1, 3]
+    hold_to_reference(got[good], ref[good], m)

@@ -34,8 +34,10 @@ def spd_batch(B, m, seed, device):
     return torch.as_tensor(K, dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("B,m", [(1, 8), (7, 48), (64, 64), (5, 100),
-                                 (3, 224), (4, 256), (2, 1024)])
+@pytest.mark.parametrize("B,m", [(1, 8), (3, 31), (3, 32), (3, 33),
+                                 (7, 48), (5, 63), (64, 64), (5, 65),
+                                 (4, 97), (5, 100), (2, 223), (3, 224),
+                                 (4, 256), (2, 1024)])
 def test_chol_inv_kernel_matches_plain(cuda, B, m):
     K = spd_batch(B, m, seed=m, device=cuda)
     before = chol.KERNEL_LAUNCHES
@@ -61,6 +63,22 @@ def test_chol_inv_kernel_nonspd_lane(cuda):
     got = batched_cholesky_inverse(K)
     finite = torch.isfinite(got).all(-1).all(-1).tolist()
     assert finite == [True, True, True, True, False, True]
+
+
+@pytest.mark.parametrize("pack", [0, 4])
+@pytest.mark.parametrize("m", [48, 100])
+def test_chol_inv_kernel_nonspd_past_first_panel(cuda, m, pack):
+    """A lane whose leading 40 x 40 block is SPD and whose pivot 40 is
+    negative fails in the second panel, past the identity rows that pad a
+    ragged panel: non-finite alone, unpacked and packed."""
+    K = spd_batch(6, m, seed=m, device=cuda)
+    K[2, 40, 40] = -1.0
+    got = batched_cholesky_inverse(K, pack=pack)
+    finite = torch.isfinite(got).all(-1).all(-1).tolist()
+    assert finite == [True, True, False, True, True, True]
+    good = [0, 1, 3, 4, 5]
+    want = batched_cholesky_inverse_plain(K[good])
+    assert (got[good] - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("B", [1, 3])
@@ -205,10 +223,11 @@ def test_dense_pallas_model_on_card_uses_kernel(cuda):
 
 @pytest.mark.parametrize("p", [2, 3, 4])
 @pytest.mark.parametrize("B,m", [(7, 16), (9, 48), (2048, 48), (5, 64),
-                                 (6, 100), (3, 300)])
+                                 (4, 65), (6, 100), (5, 160), (3, 300)])
 def test_packed_chol_inv_matches_unpacked_and_plain(cuda, B, m, p):
-    """p instances per block give kernel 1's output bit for bit (the same
-    arithmetic per instance) and agree with the plain version. At m = 300
+    """p instances per block give the unpacked launch's output bit for bit
+    (the same kernel body per instance, on groups of one warp up to m = 64,
+    4 up to 128 and 8 above) and agree with the plain version. At m = 300
     the launcher lowers p to 1: the unpacked device-memory launch."""
     K = spd_batch(B, m, seed=B + m, device=cuda)
     one = batched_cholesky_inverse(K)

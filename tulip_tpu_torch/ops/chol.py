@@ -4,12 +4,13 @@ Counterpart of ``tulip_tpu/ops/chol.py``. ``batched_cholesky_inverse``
 returns L⁻¹ with K = L Lᵀ for a batch of SPD matrices K (B, m, m):
 
 - on a CUDA tensor it launches ``csrc/chol_inv.cu`` (built at first use,
-  see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback. Up
-  to m = 224 that is one instance per thread block in shared memory or,
-  with ``pack=p``, p instances per block (the port of the reference's
-  lane-packed kernel); above, a blocked factorization whose panel
-  products, trailing updates and block inverse are spread over many
-  thread blocks per instance;
+  see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback.
+  Both of its paths factor in 32-column panels and form L⁻¹ by blocks. Up
+  to m = 224 one group of threads (a warp up to m = 64) holds an instance
+  in shared memory, one group per thread block or, with ``pack=p``, p
+  per block (the port of the reference's lane-packed kernel); above, the
+  panel products, trailing updates and block inverse are spread over
+  many thread blocks per instance;
 - on a CPU tensor it runs :func:`batched_cholesky_inverse_plain`, the
   same function in plain PyTorch.
 
@@ -127,8 +128,8 @@ def batched_cholesky_inverse(K: torch.Tensor, block: int = 0,
     of the reference's lane packing (``tulip_tpu/ops/chol.py:95``): 0 or 1
     gives one instance per block; p > 1 puts p instances in a block, each
     on its own group of threads. Where p instances do not fit in one
-    block's shared memory (always for m > 224), its threads or its named
-    barriers, the kernel's launcher lowers p to what fits, down to 1, as
+    block's shared memory (always for m > 224) or in its 512 threads, the
+    kernel's launcher lowers p to what fits, down to 1, as
     the reference's ``_pick_block_packed`` shrinks its block to the VMEM
     budget. The output does not depend on ``pack``. ``block`` is the TPU
     kernel's count of instances per grid step; the CUDA kernel has no such

@@ -4,24 +4,33 @@
 
 Imports ``tulip_tpu_torch`` from DIR (default: the checkout this file is
 in), builds its kernels, and times ``batched_cholesky_inverse`` at
-(2048, 48), (4, 256), (16, 256), (1, 1024) and ``scaled_gram`` at
-(1, 4096, 6240) beside their plain versions: median of 20 CUDA-event
-timings after 3 warm-up calls, on seeded inputs. To compare two commits on
-one card, unpack the other into a directory and run this once per root in
-one command, in turns (parent, change, change, parent).
+(2048, 48), (2048, 64), (64, 100), (8, 224), (1, 224) (the shared-memory
+path), (4, 256), (16, 256), (1, 1024) (the blocked path) and
+``scaled_gram`` at (1, 4096, 6240) beside their plain versions: median of
+20 CUDA-event timings after 3 warm-up calls, on seeded inputs. Each
+chol-inv entry also carries ``bits``, a hash of the kernel's output, so
+that two checkouts whose outputs agree bit for bit show the same hash. To
+compare two commits on one card, unpack the other into a directory and
+run this once per root in one command, in turns (parent, change, change,
+parent).
 
-``--leave-out`` instead times diagnostic builds of ``csrc/scaled_gram.cu``
-(``-DGRAM_LEAVE_OUT=k``: 1 without the split pass, 2 without the products,
-3 without the loads; their K is wrong, only the time means anything)
-beside the whole kernel, and the whole kernel at a width where A fits in
-the L2 cache, to show which part of the kernel the time goes to. Needs a
-CUDA device.
+``--leave-out`` instead times diagnostic builds that leave one part of a
+kernel out (their output is wrong, only the time means anything) beside
+the whole kernel, to show which part the time goes to: of
+``csrc/scaled_gram.cu`` (``-DGRAM_LEAVE_OUT=k``: 1 without the split
+pass, 2 without the products, 3 without the loads) at (1, 4096, 6240),
+with the whole kernel also at a width where A fits in the L2 cache; and
+of ``csrc/chol_inv.cu``'s shared-memory path (``-DCHOL_LEAVE_OUT=k``: 1
+without the loads and stores, 2 without the factorizations of the
+diagonal blocks, 3 without the panels and trailing updates, 4 without
+L⁻¹) at (2048, 48) and (2048, 64). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import statistics
@@ -31,7 +40,8 @@ import sys
 import numpy as np
 import torch
 
-CHOL_SHAPES = [(2048, 48), (4, 256), (16, 256), (1, 1024)]
+CHOL_SHAPES = [(2048, 48), (2048, 64), (64, 100), (8, 224), (1, 224),
+               (4, 256), (16, 256), (1, 1024)]
 GRAM_SHAPE = (1, 4096, 6240)
 
 
@@ -59,24 +69,61 @@ def gram_inputs(rng, B, m, n, dev):
     return A, d
 
 
+def spd_batch(rng, B, m, dev):
+    X = rng.standard_normal((B, m, m))
+    return torch.as_tensor(np.einsum("bij,bkj->bik", X, X) + m * np.eye(m),
+                           dtype=torch.float32, device=dev)
+
+
+def leave_out_build(root, name, macro, k):
+    """The C library of ``csrc/<name>.cu`` built with -D<macro>=k."""
+    from tulip_tpu_torch import _build
+
+    src = os.path.join(root, "tulip_tpu_torch", "csrc", f"{name}.cu")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib = os.path.join(_build.BUILD_DIR, f"{name}_leave_out{k}.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, f"-D{macro}={k}",
+                    "-o", lib, src], check=True, capture_output=True)
+    return ctypes.CDLL(lib)
+
+
+def leave_out_chol(root, dev):
+    """Times of chol_inv builds with one part of the shared-memory path
+    left out, at (2048, 48) and (2048, 64)."""
+    rng = np.random.default_rng(0)
+    Ks = [spd_batch(rng, 2048, m, dev) for m in (48, 64)]
+    out = {}
+    for k, what in enumerate(["whole", "no_loads_stores", "no_factor",
+                              "no_panel_update", "no_inverse"]):
+        fn = leave_out_build(root, "chol_inv", "CHOL_LEAVE_OUT",
+                             k).tulip_chol_inv_f32
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+
+        def run(K, O):
+            err = fn(K.data_ptr(), O.data_ptr(), None, K.shape[0],
+                     K.shape[1], 0, torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"cudaError {err}")
+
+        out[what] = {}
+        for K in Ks:
+            O = torch.empty_like(K)
+            out[what][f"{tuple(K.shape[:2])}"] = time_ms(lambda: run(K, O))
+    return out
+
+
 def leave_out(root, dev):
     """Times of scaled_gram builds with one part left out, at GRAM_SHAPE,
     and of the whole kernel at n = 1568 (A = 25.7 MB, inside the L2)."""
-    from tulip_tpu_torch import _build
-
     rng = np.random.default_rng(0)
     A, d = gram_inputs(rng, *GRAM_SHAPE, dev)
     A_l2, d_l2 = gram_inputs(rng, 1, GRAM_SHAPE[1], 1568, dev)
-    src = os.path.join(root, "tulip_tpu_torch", "csrc", "scaled_gram.cu")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
     out = {}
     for k, what in enumerate(["whole", "no_split", "no_products",
                               "no_loads"]):
-        lib = os.path.join(_build.BUILD_DIR, f"scaled_gram_leave_out{k}.so")
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                        f"-DGRAM_LEAVE_OUT={k}", "-o", lib, src], check=True,
-                       capture_output=True)
-        fn = ctypes.CDLL(lib).tulip_scaled_gram_f32
+        fn = leave_out_build(root, "scaled_gram", "GRAM_LEAVE_OUT",
+                             k).tulip_scaled_gram_f32
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
 
@@ -120,17 +167,18 @@ def main(argv=None):
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
     if args.leave_out:
-        out["scaled_gram_leave_out"] = leave_out(os.path.abspath(args.root),
-                                                 dev)
+        root = os.path.abspath(args.root)
+        out["scaled_gram_leave_out"] = leave_out(root, dev)
+        out["chol_inv_leave_out"] = leave_out_chol(root, dev)
         print(json.dumps(out), flush=True)
         return
     for B, m in CHOL_SHAPES:
-        X = rng.standard_normal((B, m, m))
-        K = torch.as_tensor(np.einsum("bij,bkj->bik", X, X) + m * np.eye(m),
-                            dtype=torch.float32, device=dev)
+        K = spd_batch(rng, B, m, dev)
+        bits = batched_cholesky_inverse(K).cpu().numpy().tobytes()
         out[f"chol_inv{(B, m)}"] = {
             "ms": time_ms(lambda: batched_cholesky_inverse(K)),
-            "plain_ms": time_ms(lambda: batched_cholesky_inverse_plain(K))}
+            "plain_ms": time_ms(lambda: batched_cholesky_inverse_plain(K)),
+            "bits": hashlib.sha256(bits).hexdigest()[:16]}
     A, d = gram_inputs(rng, *GRAM_SHAPE, dev)
     out[f"scaled_gram{GRAM_SHAPE}"] = {
         "ms": time_ms(lambda: scaled_gram(A, d)),
