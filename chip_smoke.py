@@ -23,11 +23,16 @@ Phases, each of which exits non-zero on a failed check:
 3b. kernel: the scaled-Gram kernel against its plain version at four
    shapes up to (1, 4096, 6240), both against the plain version in f64 at
    (2, 1000, 1500), and kernel vs plain vs one-einsum time at the largest;
-3c. kernel: the fused K1 solve against its plain version at (2048, 48, 96),
-   (7, 48, 96), (4, 256, 512), (1, 1024, 2048) and (2, 64, 8192) (its
-   n-long vectors in device memory), refine 0 (three seeds, held against
-   the plain version in f64) and 1 (against it in f32 and in f64), and
-   kernel vs plain time at (2048, 48, 96), refine 1;
+3c. kernel: the fused K1 solve's staged body (registers, local memory and
+   resident instances an SM, loaded by bulk copies and by 4-byte copies),
+   then the kernel against its plain version at (2048, 48, 96),
+   (7, 48, 96), (4, 256, 512), (1, 1024, 2048), (2, 64, 8192) (its
+   n-long vectors in device memory), (5, 45, 91), (3, 13, 7) and
+   (2, 48, 1010) (ragged: 4-byte copies), refine 0 (three seeds, held
+   against the plain version in f64) and 1 (against it in f32 and in f64);
+   inputs that are views off 16 bytes against the aligned launch, bit for
+   bit; a non-finite lane at (6, 48, 96) and (6, 45, 91); and kernel vs
+   plain time at (2048, 48, 96), refine 1;
 4. slice: the batched f32 HSD solve of the repository's benchmark
    instances (2048 random 48x96 LPs, seed 0, tolerance 3e-4) through
    ``SmallK1Backend``: every lane OPTIMAL, objectives of 128 lanes against
@@ -104,7 +109,7 @@ PACKED_SHAPES = [(2048, 48, 2), (2048, 48, 4), (2048, 64, 2)]
 # (phase 9).
 PACK = 4
 FUSED_SHAPES = [(2048, 48, 96), (7, 48, 96), (4, 256, 512), (1, 1024, 2048),
-                (2, 64, 8192)]
+                (2, 64, 8192), (5, 45, 91), (3, 13, 7), (2, 48, 1010)]
 FUSED_TIMED = (2048, 48, 96)
 # JAX package's batch_linprog(algorithm="MPC") at its defaults (f32) on the
 # 64 problems of entry_problems, on the CPU: 62 OPTIMAL, the infeasible
@@ -274,6 +279,7 @@ def nonspd_lanes(B, m, pack, bad, device, past_panel=False):
 def phase_kernel(device, lib):
     from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                           batched_cholesky_inverse_plain)
+    from tulip_tpu_torch.time_kernels import device_ms
 
     for m, p in [(48, 1), (48, PACK), (64, 1), (100, 1), (224, 1)]:
         regs, local, groups, group = chol_occupancy(lib, m, p)
@@ -294,11 +300,13 @@ def phase_kernel(device, lib):
         K = spd_batch(B, m, seed=2, device=device)
         tk = time_ms(lambda: batched_cholesky_inverse(K))
         tp = time_ms(lambda: batched_cholesky_inverse_plain(K))
-        times[(B, m)] = (tk, tp)
+        td = device_ms(lambda: batched_cholesky_inverse(K))
+        times[(B, m)] = (tk, tp, td)
         bound, by = chol_bound(B, m)
-        log(f"  time (B={B}, m={m}): kernel {tk:.4f} ms, plain "
-            f"(cholesky_ex + solve_triangular) {tp:.4f} ms, median of 20; "
-            f"bound {bound:.4f} ms ({by}), kernel at {bound / tk:.4f} of it")
+        log(f"  time (B={B}, m={m}): kernel {tk:.4f} ms (device time "
+            f"{td:.4f} ms), plain (cholesky_ex + solve_triangular) {tp:.4f} "
+            f"ms, median of 20; bound {bound:.4f} ms ({by}), kernel's device "
+            f"time at {bound / td:.4f} of it")
     return errs, times
 
 
@@ -309,6 +317,7 @@ def phase_packed(device):
     at the same shape."""
     from tulip_tpu_torch.ops.chol import (batched_cholesky_inverse,
                                           batched_cholesky_inverse_plain)
+    from tulip_tpu_torch.time_kernels import device_ms
 
     out = {}
     for B, m, p in PACKED_SHAPES:
@@ -326,7 +335,8 @@ def phase_packed(device):
         tpk = time_ms(lambda: batched_cholesky_inverse(K, pack=p))
         tk = time_ms(lambda: batched_cholesky_inverse(K))
         tp = time_ms(lambda: batched_cholesky_inverse_plain(K))
-        out[(B, m, p)] = (err, tpk, tk, tp)
+        out[(B, m, p)] = (err, tpk, tk, tp, device_ms(
+            lambda: batched_cholesky_inverse(K, pack=p)))
         bound, by = chol_bound(B, m)
         log(f"  packed p={p} (B={B}, m={m}): max|packed-plain| {err:.3e}, "
             f"max|packed-unpacked| {vs_one:.3e}; packed {tpk:.4f} ms, "
@@ -408,37 +418,93 @@ def hold_fused(B, m, n, refine, seeds, device):
     return abs_err
 
 
-def phase_fused(device):
+def fused_occupancy(lib, m, n, bulk):
+    """(registers a thread, local bytes a thread, instances resident on an
+    SM, threads an instance) of the fused kernel's staged body at (m, n),
+    loaded by bulk copies or by 4-byte copies."""
+    import ctypes
+
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.tulip_fused_k1_solve_occupancy(m, n, int(bulk), 0,
+                                             *map(ctypes.byref, vals))
+    check(err == 0, f"tulip_fused_k1_solve_occupancy({m}, {n}, {bulk}): "
+          f"cudaError {err}")
+    return tuple(v.value for v in vals)
+
+
+def offset_views(args):
+    """Each input copied into a buffer one float longer and viewed from its
+    second float: contiguous views whose data starts off 16 bytes."""
+    out = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out.append(buf[1:].view(t.shape))
+        out[-1].copy_(t)
+    return out
+
+
+def phase_fused(device, lib):
     from tulip_tpu_torch.ops import solve
     from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
                                            batched_fused_k1_solve_plain)
+    from tulip_tpu_torch.time_kernels import device_ms
 
+    for m, n, bulk in [(48, 96, True), (48, 96, False), (45, 91, False)]:
+        regs, local, blocks, threads = fused_occupancy(lib, m, n, bulk)
+        check(local == 0, f"fused_k1_solve staged at ({m}, {n}): {local} "
+              f"bytes of local memory a thread (spills)")
+        log(f"  staged body ({m}, {n}), {'bulk' if bulk else '4-byte'} "
+            f"copies: {regs} registers and {local} bytes of local memory a "
+            f"thread, {threads} threads an instance, {blocks} instances "
+            f"resident an SM")
     errs = {}
-    wide = solve.WIDE_LAUNCHES
+    before = (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+              solve.WIDE_LAUNCHES, solve.BULK_LAUNCHES)
     for B, m, n in FUSED_SHAPES:
         for refine in (0, 1):
             seeds = [m + refine] if refine else [m, m + 100, m + 200]
             errs[(B, m, n, refine)] = hold_fused(B, m, n, refine, seeds,
                                                  device)
-    check(solve.WIDE_LAUNCHES > wide, "fused_k1_solve: the layout with the "
-          "n-long vectors in device memory never ran")
-    args = fused_inputs(6, 48, 96, seed=5, device=device)
-    args[0][2, 5, 7] = float("nan")
-    dx, dy = batched_fused_k1_solve(*args, refine=1)
-    ok = (torch.isfinite(dx).all(-1) & torch.isfinite(dy).all(-1)).tolist()
-    check(ok == [True, True, False, True, True, True],
-          f"fused non-finite lane 2: finite lanes {ok}")
-    log("  non-finite lane: non-finite output in that lane only")
+    launches, streamed, wide, bulk = (a - b for a, b in zip(
+        (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+         solve.WIDE_LAUNCHES, solve.BULK_LAUNCHES), before))
+    check(wide > 0, "fused_k1_solve: the layout with the n-long vectors in "
+          "device memory never ran")
+    check(bulk > 0 and launches - streamed - bulk > 0, f"fused_k1_solve: "
+          f"the staged layout ran {bulk} times by bulk copies and "
+          f"{launches - streamed - bulk} by 4-byte copies; both must run")
+    args = fused_inputs(3, 48, 96, seed=7, device=device)
+    want = batched_fused_k1_solve(*args, refine=1)
+    bulk = solve.BULK_LAUNCHES
+    got = batched_fused_k1_solve(*offset_views(args), refine=1)
+    torch.cuda.synchronize()
+    check(solve.BULK_LAUNCHES == bulk and all(
+        torch.equal(g, w) for g, w in zip(got, want)), "fused_k1_solve: "
+        "views off 16 bytes did not give the bulk-copied output bit for bit")
+    log("  inputs off 16 bytes (4-byte copies): the bulk-copied output, "
+        "bit for bit")
+    for m, n in [(48, 96), (45, 91)]:
+        args = fused_inputs(6, m, n, seed=5, device=device)
+        args[0][2, 5, 7] = float("nan")
+        dx, dy = batched_fused_k1_solve(*args, refine=1)
+        ok = (torch.isfinite(dx).all(-1)
+              & torch.isfinite(dy).all(-1)).tolist()
+        check(ok == [True, True, False, True, True, True],
+              f"fused non-finite lane 2 at (6, {m}, {n}): finite lanes {ok}")
+        log(f"  non-finite lane at (6, {m}, {n}): non-finite output in that "
+            f"lane only")
 
     B, m, n = FUSED_TIMED
     args = fused_inputs(B, m, n, seed=6, device=device)
     tk = time_ms(lambda: batched_fused_k1_solve(*args, refine=1))
+    td = device_ms(lambda: batched_fused_k1_solve(*args, refine=1))
     tp = time_ms(lambda: batched_fused_k1_solve_plain(*args, refine=1))
     bound, by = fused_bound(B, m, n, 1)
-    log(f"  time {FUSED_TIMED}, refine 1: kernel {tk:.4f} ms, plain (the "
-        f"bmm chain) {tp:.4f} ms, median of 20; bound {bound:.4f} ms ({by}), "
-        f"kernel at {bound / tk:.4f} of it")
-    return errs, (tk, tp)
+    log(f"  time {FUSED_TIMED}, refine 1: kernel {tk:.4f} ms (device time "
+        f"{td:.4f} ms), plain (the bmm chain) {tp:.4f} ms, median of 20; "
+        f"bound {bound:.4f} ms ({by}), kernel's device time at "
+        f"{bound / td:.4f} of it")
+    return errs, (tk, tp, td)
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +524,7 @@ def gram_inputs(B, m, n, seed, device):
 
 def phase_gram(device):
     from tulip_tpu_torch.ops.gram import scaled_gram, scaled_gram_plain
+    from tulip_tpu_torch.time_kernels import device_ms
 
     errs = {}
     for B, m, n in GRAM_SHAPES:
@@ -494,6 +561,7 @@ def phase_gram(device):
     B, m, n = GRAM_TIMED
     A, d = gram_inputs(B, m, n, seed=5, device=device)
     tk = time_ms(lambda: scaled_gram(A, d))
+    td = device_ms(lambda: scaled_gram(A, d))
     tp = time_ms(lambda: scaled_gram_plain(A, d))
     # One library call computing the same function of the same inputs.
     tl = time_ms(lambda: torch.einsum("bik,bk,bjk->bij", A, d, A))
@@ -507,7 +575,7 @@ def phase_gram(device):
         f"{3 * full / 2 / tk / 1e9:.3f} TFLOP/s of tensor-core work); bound "
         f"{bound:.4f} ms ({by}, 3·m(m+1)n at the TF32 peak), kernel at "
         f"{bound / tk:.4f} of it")
-    return errs, (tk, tp, tl)
+    return errs, (tk, tp, tl, td)
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +820,7 @@ class Launches:
         self.mods = {"chol": chol, "gram": gram, "solve": solve}
         self.total = dict.fromkeys(COUNTERS, 0)
         self.streamed = 0
+        self.bulk = 0
         # Shapes the main path gave the chol-inv and fused solve kernels.
         self.shapes = {"chol": set(), "solve": set()}
 
@@ -761,6 +830,7 @@ class Launches:
         for mod, attr in COUNTERS.values():
             setattr(self.mods[mod], attr, 0)
         self.mods["solve"].STREAMED_LAUNCHES = 0
+        self.mods["solve"].BULK_LAUNCHES = 0
         for mod in self.shapes:
             self.mods[mod].SHAPES.clear()
         got = {}
@@ -771,6 +841,8 @@ class Launches:
             self.total[name] += got[name]
         got["streamed"] = self.mods["solve"].STREAMED_LAUNCHES
         self.streamed += got["streamed"]
+        got["bulk"] = self.mods["solve"].BULK_LAUNCHES
+        self.bulk += got["bulk"]
         for mod, seen in self.shapes.items():
             seen |= self.mods[mod].SHAPES
 
@@ -844,7 +916,7 @@ def main(argv=None):
     log("[3b] scaled_gram kernel vs plain version")
     gram_errs, gram_times = phase_gram(device)
     log("[3c] fused_k1_solve kernel vs plain version")
-    fused_errs, fused_times = phase_fused(device)
+    fused_errs, fused_times = phase_fused(device, _build.load("fused_solve"))
 
     count = Launches()
     raws, dats, opts = slice_inputs(device, 2048)
@@ -1066,32 +1138,34 @@ def main(argv=None):
           f"main path: the blocked chol-inv shapes {sorted(blocked)} lack "
           f"{BLOCKED_TIMED} or an m = 256 bucket")
 
-    tk, tp = times[(2048, 48)]
-    bk, bp = times[BLOCKED_TIMED]
-    pk_err, pk_ms, _, pk_plain = packed[(2048, 48, PACK)]
-    gk, gp, gl = gram_times
-    fk, fp = fused_times
+    tk, tp, td = times[(2048, 48)]
+    bk, bp, bd = times[BLOCKED_TIMED]
+    pk_err, pk_ms, _, pk_plain, pk_dev = packed[(2048, 48, PACK)]
+    gk, gp, gl, gd = gram_times
+    fk, fp, fd = fused_times
     kernels = []
-    for name, src, repl, err_, ms, plain_ms, bound, lib in [
+    # "ms" is a CUDA-event timing of one call, the host's launch included;
+    # "device_ms" the kernel's own time on the card (torch.profiler).
+    for name, src, repl, err_, ms, dev_ms, plain_ms, bound, lib in [
             ("chol_inv", "chol_inv.cu", "tulip_tpu/ops/chol.py:42",
-             errs[(2048, 48)], tk, tp, chol_bound(2048, 48), None),
+             errs[(2048, 48)], tk, td, tp, chol_bound(2048, 48), None),
             ("chol_inv_blocked", "chol_inv.cu", "tulip_tpu/ops/chol.py:42",
-             hold_chol(*BLOCKED_TIMED, 0, 0, device), bk, bp,
+             hold_chol(*BLOCKED_TIMED, 0, 0, device), bk, bd, bp,
              chol_bound(*BLOCKED_TIMED), None),
             ("chol_inv_packed", "chol_inv.cu", "tulip_tpu/ops/chol.py:95",
-             pk_err, pk_ms, pk_plain, chol_bound(2048, 48), None),
+             pk_err, pk_ms, pk_dev, pk_plain, chol_bound(2048, 48), None),
             ("fused_k1_solve", "fused_solve.cu", "tulip_tpu/ops/solve.py:34",
-             fused_errs[FUSED_TIMED + (1,)], fk, fp,
+             fused_errs[FUSED_TIMED + (1,)], fk, fd, fp,
              fused_bound(*FUSED_TIMED, 1), None),
             ("scaled_gram", "scaled_gram.cu",
              "tulip_tpu/kkt/pallas_chol.py:36", gram_errs[GRAM_TIMED], gk,
-             gp, gram_bound(*GRAM_TIMED), gl)]:
+             gd, gp, gram_bound(*GRAM_TIMED), gl)]:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tulip_tpu_torch/csrc/{src}", "replaces": repl,
             "launches": count.total[name], "max_abs_err": err_, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": lib})
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

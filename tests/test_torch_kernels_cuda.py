@@ -278,27 +278,17 @@ def fused_inputs(B, m, n, seed, device):
     return A, Li, d, treg, regD, xi_p, xi_d
 
 
-@pytest.mark.parametrize("refine", [0, 1])
-@pytest.mark.parametrize("B,m,n", [(2048, 48, 96), (7, 48, 96),
-                                   (4, 256, 512), (1, 1024, 2048),
-                                   (2, 64, 8192)])
-def test_fused_solve_kernel_matches_plain(cuda, B, m, n, refine):
-    """Per lane, against max(1, max|exact|), exact being the plain version
-    in f64 on the same inputs: with a sweep, the kernel within 1e-4 of the
-    plain version in f32 (f32 products summed in another order than
-    cuBLAS's); without one, where the factor's conditioning amplifies f32
-    rounding, the kernel's worst lane at most twice as far from exact as
-    the plain f32 version's (+1e-6). At n = 8192 the n-long vectors do not
-    fit in shared memory and live in device memory."""
-    args = fused_inputs(B, m, n, seed=m + refine, device=cuda)
-    counts = (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
-              solve.WIDE_LAUNCHES)
-    got = batched_fused_k1_solve(*args, refine=refine)
-    torch.cuda.synchronize()
-    streamed, wide = m >= 256 or n > 4096, n > 4096
-    assert (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
-            solve.WIDE_LAUNCHES) == (counts[0] + 1, counts[1] + streamed,
-                                     counts[2] + wide)
+def staged(m, n):
+    """Whether an (m, n) instance takes the fused kernel's staged layout:
+    8 n-long and 7 m-long vectors, A and Li's lower triangle in the shared
+    memory a block may opt in to (227 KB on an H100)."""
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", 232448)
+    return (8 * n + 7 * m + m * n + m * (m + 1) // 2) * 4 <= optin
+
+
+def hold_fused(got, args, refine):
+    """The plain-version bars of test_fused_solve_kernel_matches_plain."""
     want = batched_fused_k1_solve_plain(*args, refine=refine)
     exact = batched_fused_k1_solve_plain(*[a.double() for a in args],
                                          refine=refine)
@@ -310,6 +300,74 @@ def test_fused_solve_kernel_matches_plain(cuda, B, m, n, refine):
             assert ((g - w).abs().amax(-1) <= 1e-4 * scale.float()).all()
         else:
             assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+# (48, 1010) is the widest instance at m = 48 that the staged layout takes
+# (by 4-byte copies: n is not a multiple of 4), (48, 1008) the widest it
+# loads by bulk copies, (48, 1011) the narrowest read from device memory.
+@pytest.mark.parametrize("refine", [0, 1])
+@pytest.mark.parametrize("B,m,n", [(2048, 48, 96), (7, 48, 96),
+                                   (4, 256, 512), (1, 1024, 2048),
+                                   (2, 64, 8192), (5, 45, 91), (3, 13, 7),
+                                   (2, 48, 1008), (2, 48, 1010),
+                                   (2, 48, 1011)])
+def test_fused_solve_kernel_matches_plain(cuda, B, m, n, refine):
+    """Per lane, against max(1, max|exact|), exact being the plain version
+    in f64 on the same inputs: with a sweep, the kernel within 1e-4 of the
+    plain version in f32 (f32 products summed in another order than
+    cuBLAS's); without one, where the factor's conditioning amplifies f32
+    rounding, the kernel's worst lane at most twice as far from exact as
+    the plain f32 version's (+1e-6). At n = 8192 the n-long vectors do not
+    fit in shared memory and live in device memory. A staged instance with
+    m and n multiples of 4 loads by bulk copies, any other by 4-byte
+    copies."""
+    args = fused_inputs(B, m, n, seed=m + refine, device=cuda)
+    counts = (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+              solve.WIDE_LAUNCHES, solve.BULK_LAUNCHES)
+    got = batched_fused_k1_solve(*args, refine=refine)
+    torch.cuda.synchronize()
+    streamed, wide = not staged(m, n), n > 4096
+    bulk = not streamed and m % 4 == 0 and n % 4 == 0
+    assert (solve.KERNEL_LAUNCHES, solve.STREAMED_LAUNCHES,
+            solve.WIDE_LAUNCHES, solve.BULK_LAUNCHES) == (
+        counts[0] + 1, counts[1] + streamed, counts[2] + wide,
+        counts[3] + bulk)
+    hold_fused(got, args, refine)
+
+
+def offset_views(args, k=1):
+    """Each input copied into a buffer k floats longer and viewed from its
+    k-th float: contiguous views whose data starts off 16 bytes for k = 1."""
+    out = []
+    for t in args:
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        view = buf[k:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_fused_solve_kernel_takes_offset_views(cuda, refine):
+    """Inputs that are views with a storage offset take the staged layout's
+    4-byte copies and give the bulk-copied launch's output bit for bit; an
+    A cut from a larger batch with m·n odd (A_big[1:]) as well."""
+    args = fused_inputs(3, 48, 96, seed=9, device=cuda)
+    bulk = solve.BULK_LAUNCHES
+    want = batched_fused_k1_solve(*args, refine=refine)
+    assert solve.BULK_LAUNCHES == bulk + 1
+    got = batched_fused_k1_solve(*offset_views(args), refine=refine)
+    torch.cuda.synchronize()
+    assert solve.BULK_LAUNCHES == bulk + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    hold_fused(got, args, refine)
+
+    big = fused_inputs(4, 45, 91, seed=10, device=cuda)
+    cut = [t[1:] for t in big]
+    assert cut[0].storage_offset() % 4 == 45 * 91 % 4 == 3
+    got = batched_fused_k1_solve(*cut, refine=refine)
+    hold_fused(got, cut, refine)
 
 
 def test_fused_backend_takes_the_kernel_at_any_n(cuda):
@@ -334,13 +392,36 @@ def test_fused_backend_takes_the_kernel_at_any_n(cuda):
         assert ((g - w).abs().amax(-1) <= 1e-4 * scale).all()
 
 
-def test_fused_solve_kernel_nonfinite_lane(cuda):
-    A, Li, d, treg, regD, xi_p, xi_d = fused_inputs(6, 48, 96, seed=3,
-                                                    device=cuda)
-    A[2, 5, 7] = float("nan")
+@pytest.mark.parametrize("m,n,offset", [(48, 96, 0), (48, 96, 1),
+                                        (45, 91, 0), (13, 7, 0)])
+def test_fused_solve_kernel_nonfinite_lane(cuda, m, n, offset):
+    """In the staged layout by bulk copies, by 4-byte copies of offset
+    views, and at ragged shapes."""
+    args = fused_inputs(6, m, n, seed=3, device=cuda)
+    if offset:
+        args = offset_views(args, offset)
+    A, Li, d, treg, regD, xi_p, xi_d = args
+    A[2, 5, min(7, n - 1)] = float("nan")
     dx, dy = batched_fused_k1_solve(A, Li, d, treg, regD, xi_p, xi_d, 1)
     ok = (torch.isfinite(dx).all(-1) & torch.isfinite(dy).all(-1)).tolist()
     assert ok == [True, True, False, True, True, True]
+
+
+@pytest.mark.parametrize("m,n", [(48, 96), (45, 91), (48, 1008)])
+def test_fused_staged_body_does_not_spill(cuda, m, n):
+    """The staged body's launches keep every value in registers (no local
+    memory) and fit at least one instance an SM."""
+    import ctypes
+
+    from tulip_tpu_torch import _build
+
+    fn = _build.load("fused_solve").tulip_fused_k1_solve_occupancy
+    for bulk in ([0, 1] if m % 4 == 0 and n % 4 == 0 else [0]):
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        assert fn(m, n, bulk, 0, *map(ctypes.byref, vals)) == 0
+        regs, local, blocks, threads = (v.value for v in vals)
+        assert local == 0 and blocks >= 1 and regs <= 255, (bulk, regs,
+                                                            local, blocks)
 
 
 def test_fused_solve_kernel_refuses(cuda):

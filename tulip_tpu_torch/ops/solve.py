@@ -8,6 +8,11 @@ one launch:
 
 - on a CUDA tensor it launches ``csrc/fused_solve.cu`` (built at first use,
   see :mod:`tulip_tpu_torch._build`) or raises; there is no fallback;
+  when an instance fits in shared memory (the staged layout) the kernel
+  loads it in one asynchronous burst: TMA bulk copies when m and n are
+  multiples of 4 and every input starts on 16 bytes, else 4-byte
+  ``cp.async`` copies (the C launcher decides from the pointers and the
+  shapes); either way the output is the same, bit for bit;
 - on a CPU tensor it runs :func:`batched_fused_k1_solve_plain`, the same
   arithmetic in plain PyTorch.
 
@@ -28,12 +33,15 @@ from .chol import MAX_M
 # reset it); the plain version does not count. STREAMED_LAUNCHES counts the
 # launches among them that read A and Li from device memory, because the
 # instance did not fit in shared memory, and WIDE_LAUNCHES those among the
-# latter whose n-long vectors lived in device memory too. SHAPES holds the
+# latter whose n-long vectors lived in device memory too. BULK_LAUNCHES counts
+# the launches that staged A and Li in shared memory by TMA bulk copies rather
+# than 4-byte copies. SHAPES holds the
 # (B, m, n, refine) of every launch, so that a caller can hold the kernel
 # against its plain version at the shapes a run gave it.
 KERNEL_LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 WIDE_LAUNCHES = 0
+BULK_LAUNCHES = 0
 SHAPES: set = set()
 
 
@@ -70,7 +78,7 @@ def batched_fused_k1_solve_plain(A, Li, d, treg, regD, xi_p, xi_d,
 
 
 def _launch(A, Li, d, treg, regD, xi_p, xi_d, refine: int):
-    global KERNEL_LAUNCHES, STREAMED_LAUNCHES, WIDE_LAUNCHES
+    global KERNEL_LAUNCHES, STREAMED_LAUNCHES, WIDE_LAUNCHES, BULK_LAUNCHES
     from .. import _build
 
     if A.dim() != 3:
@@ -127,6 +135,7 @@ def _launch(A, Li, d, treg, regD, xi_p, xi_d, refine: int):
     KERNEL_LAUNCHES += 1
     STREAMED_LAUNCHES += layout.value <= 1
     WIDE_LAUNCHES += layout.value == 0
+    BULK_LAUNCHES += layout.value == 3
     SHAPES.add((B, m, n, refine))
     return dx, dy
 
