@@ -50,6 +50,15 @@ Phases, each of which exits non-zero on a failed check:
    ``KKT_Backend="dense-pallas"`` (the scaled-Gram kernel), presolve on:
    OPTIMAL and the objective against HiGHS; then the same LP through
    ``"dense"`` (cuBLAS + cuSOLVER) for its wall;
+6b. structured route: ``Model.optimize()`` at its defaults (no backend
+   named: the structure probe picks) on ``multiperiod_lp(4096)`` in f64
+   and f32 (HSD) and in f64 with ``IPM_Algorithm="MPC"``, which must run
+   ``"banded"`` through its level engine, and on
+   ``scattered_coupling_lp(2048)`` in f64, which must run ``"sparse"``
+   through its level engine: OPTIMAL, the objective against HiGHS (1e-6
+   in f64, 1e-3 in f32); iterations, walls, ``Model.timings`` and ms per
+   iteration beside phase 6's walls on the same LP. No kernel of ours is
+   on this route (the level engine is torch.linalg and cuBLAS);
 7. single-LP entry at defaults: the CLI on ``tests/data/*.mps`` (f64) and
    ``Model.optimize()`` on ``multiperiod_lp(1024)`` in f64 (``"dense"``)
    and in f32 (``"pallas-small"``, the chol-inv kernel at B = 1);
@@ -68,13 +77,13 @@ Phases, each of which exits non-zero on a failed check:
    that shape with phase 3's and 3c's bars; the chol-inv shapes must
    include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 are the main path: every kernel's launch count is reset just
-before each of them and read just after. The last lines are the card's
+Phases 4-9 (6b included) are the main path: every kernel's launch count
+is reset just before each of them and read just after. The last lines are the card's
 name and power limit, a JSON list of the kernels with their launches,
 errors, times and bounds, and the JSON result
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
-torch.profiler tables of one warm slice solve (phases 4 and 4b) and of
-the phase-6 solve to DIR.
+torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
+phase-6 solve and of phase 6b's banded f32 solve to DIR.
 """
 
 from __future__ import annotations
@@ -111,6 +120,9 @@ PACK = 4
 FUSED_SHAPES = [(2048, 48, 96), (7, 48, 96), (4, 256, 512), (1, 1024, 2048),
                 (2, 64, 8192), (5, 45, 91), (3, 13, 7), (2, 48, 1010)]
 FUSED_TIMED = (2048, 48, 96)
+# The fused solve's shape on the m = 256 bucket of phases 5b and 8 (the
+# layout that reads A and L⁻¹ from device memory), timed in phase 10.
+STREAMED_TIMED = (4, 256, 512)
 # JAX package's batch_linprog(algorithm="MPC") at its defaults (f32) on the
 # 64 problems of entry_problems, on the CPU: 62 OPTIMAL, the infeasible
 # instance NUMERICAL_PROBLEM, the unbounded one DUAL_INFEASIBLE (decided by
@@ -445,9 +457,7 @@ def offset_views(args):
 
 def phase_fused(device, lib):
     from tulip_tpu_torch.ops import solve
-    from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
-                                           batched_fused_k1_solve_plain)
-    from tulip_tpu_torch.time_kernels import device_ms
+    from tulip_tpu_torch.ops.solve import batched_fused_k1_solve
 
     for m, n, bulk in [(48, 96, True), (48, 96, False), (45, 91, False)]:
         regs, local, blocks, threads = fused_occupancy(lib, m, n, bulk)
@@ -494,17 +504,26 @@ def phase_fused(device, lib):
         log(f"  non-finite lane at (6, {m}, {n}): non-finite output in that "
             f"lane only")
 
-    B, m, n = FUSED_TIMED
+    return errs, time_fused(*FUSED_TIMED, 1, device)
+
+
+def time_fused(B, m, n, refine, device):
+    """(event ms, plain ms, device ms) of the fused solve at one shape,
+    printed beside its bound."""
+    from tulip_tpu_torch.ops.solve import (batched_fused_k1_solve,
+                                           batched_fused_k1_solve_plain)
+    from tulip_tpu_torch.time_kernels import device_ms
+
     args = fused_inputs(B, m, n, seed=6, device=device)
-    tk = time_ms(lambda: batched_fused_k1_solve(*args, refine=1))
-    td = device_ms(lambda: batched_fused_k1_solve(*args, refine=1))
-    tp = time_ms(lambda: batched_fused_k1_solve_plain(*args, refine=1))
-    bound, by = fused_bound(B, m, n, 1)
-    log(f"  time {FUSED_TIMED}, refine 1: kernel {tk:.4f} ms (device time "
-        f"{td:.4f} ms), plain (the bmm chain) {tp:.4f} ms, median of 20; "
-        f"bound {bound:.4f} ms ({by}), kernel's device time at "
+    tk = time_ms(lambda: batched_fused_k1_solve(*args, refine=refine))
+    td = device_ms(lambda: batched_fused_k1_solve(*args, refine=refine))
+    tp = time_ms(lambda: batched_fused_k1_solve_plain(*args, refine=refine))
+    bound, by = fused_bound(B, m, n, refine)
+    log(f"  time {(B, m, n)}, refine {refine}: kernel {tk:.4f} ms (device "
+        f"time {td:.4f} ms), plain (the bmm chain) {tp:.4f} ms, median of "
+        f"20; bound {bound:.4f} ms ({by}), kernel's device time at "
         f"{bound / td:.4f} of it")
-    return errs, (tk, tp, td)
+    return tk, tp, td
 
 
 # ---------------------------------------------------------------------------
@@ -606,12 +625,40 @@ def staircase_lp(m, mr=64, nc=96, seed=0):
     return A, np.asarray(A @ x0), rng.standard_normal(n), u
 
 
+def scattered_coupling_lp(m=2048, mr=64, nc=96, ncouple=10, seed=4):
+    """Staircase plus random long-range stage couplings, a copy of
+    tests/golden_large.py:scattered_coupling_lp (same seed, same LP): the
+    scattered off-band blocks defeat any band ordering but stay cheap for
+    tile-granular fill."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    A, b, c, u = staircase_lp(m, mr=mr, nc=nc, seed=seed)
+    stages = m // mr
+    n = A.shape[1]
+    I, J, V = [], [], []
+    for _ in range(ncouple):
+        s, t = rng.choice(stages, 2, replace=False)
+        ii, jj = np.meshgrid(np.arange(s * mr, (s + 1) * mr),
+                             np.arange(t * nc, (t + 1) * nc),
+                             indexing="ij")
+        I.append(ii.ravel())
+        J.append(jj.ravel())
+        V.append(rng.standard_normal(mr * nc) * 0.3)
+    I, J, V = map(np.concatenate, (I, J, V))
+    A = (A + sp.csr_matrix((V, (I, J)), shape=A.shape)).tocsr()
+    u = rng.uniform(1, 3, n)
+    x0 = u * rng.uniform(0.3, 0.7, n)
+    return A, np.asarray(A @ x0), rng.standard_normal(n), u
+
+
 def highs_staircase(A, b, c, u):
     """HiGHS's optimum (its interior-point method: the dual simplex takes
     minutes at m = 4096)."""
     r = highs(c, method="highs-ipm", A_eq=A, b_eq=b,
               bounds=list(zip(np.zeros(A.shape[1]), u)))
-    check(r.status == 0, f"HiGHS failed on the staircase: {r.message}")
+    check(r.status == 0, f"HiGHS failed on an LP of m = {A.shape[0]}: "
+          f"{r.message}")
     return float(r.fun)
 
 
@@ -652,6 +699,26 @@ def describe(mod, wall):
     it = mod.barrier_iterations
     return (f"{it} iterations, wall {wall:.4f} s ({t}); "
             f"{mod.timings['ipm'] / max(it, 1) * 1e3:.3f} ms per iteration")
+
+
+def host_symbolic_s(mod, device):
+    """(probe seconds, backend setup seconds) of a solved Model's
+    structured route, each timed again alone on the same host A: the
+    probe runs in ``Model._route``, outside ``Model.timings``; the
+    backend's setup (symbolic analysis, operand gathers, copies to the
+    card) at the start of the IPM, inside ``timings["ipm"]``."""
+    from tulip_tpu_torch.model import _probe_structure
+
+    be = mod.kkt_backend
+    t0 = time.perf_counter()
+    _probe_structure(be.host_A)
+    probe_s = time.perf_counter() - t0
+    A = torch.as_tensor(be.host_A, device=device)[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.setup(A)
+    torch.cuda.synchronize()
+    return probe_s, time.perf_counter() - t0
 
 
 def run_cli(path, device, *flags):
@@ -1024,6 +1091,60 @@ def main(argv=None):
                       os.path.join(args.profile, "profile_single_lp.txt"),
                       wall6)
 
+    # -- 6b. the structured route at the defaults, counted -----------------
+    scattered = scattered_coupling_lp(2048)
+    ref_sc = highs_staircase(*scattered)
+    runs = [("multiperiod_lp(4096) f64 HSD", big, ref_big, "float64", "HSD",
+             "banded", 1e-6),
+            ("multiperiod_lp(4096) f32 HSD", big, ref_big, "float32", "HSD",
+             "banded", 1e-3),
+            ("multiperiod_lp(4096) f64 MPC", big, ref_big, "float64", "MPC",
+             "banded", 1e-6),
+            ("scattered_coupling_lp(2048) f64 HSD", scattered, ref_sc,
+             "float64", "HSD", "sparse", 1e-6)]
+    structured = {}
+    with count.phase() as n6b:
+        for what, lp, ref, dtype, algo, want_be, tol in runs:
+            m6b = staircase_model(lp, device, dtype)
+            m6b.params.IPM.Algorithm = algo
+            st6b, z6b, w6b = solve_model(m6b)
+            structured[what] = (m6b, st6b, z6b, w6b, ref, want_be, tol)
+    for what, (m6b, st6b, z6b, w6b, ref, want_be, tol) in \
+            structured.items():
+        check(m6b.kkt_backend.name == want_be, f"{what}: the probe routed "
+              f"to {m6b.kkt_backend.name!r}, not {want_be!r}")
+        kind = type(m6b.solver_state.kkt).__name__
+        check(kind == "SparseK1LevelState", f"{what}: {want_be!r} set up a "
+              f"{kind}, not its level engine's state")
+        check(st6b.name == "OPTIMAL", f"{what}: status {st6b.name}")
+        err = check_objective(what, z6b, ref, tol)
+        probe_s, setup_s = host_symbolic_s(m6b, device)
+        it = m6b.barrier_iterations
+        log(f"[6b] {what} at the defaults: {want_be} ({kind}), OPTIMAL, "
+            f"objective {z6b!r} vs HiGHS {ref!r} (rel {err:.3e}); "
+            f"{describe(m6b, w6b)}")
+        log(f"  host symbolic phase, timed again alone: probe "
+            f"{probe_s:.4f} s (outside the timings), backend setup "
+            f"{setup_s:.4f} s (inside 'ipm'); the IPM without its setup "
+            f"{(m6b.timings['ipm'] - setup_s) / it * 1e3:.3f} ms per "
+            f"iteration")
+    log(f"  beside phase 6 on multiperiod_lp(4096), f32: dense-pallas wall "
+        f"{wall6:.4f} s, dense wall {wall_d:.4f} s; launches {n6b}; {card}")
+    # The level engine scatter-adds with index_add_ (atomics on CUDA): a
+    # second run of the same solve shows whether the order moved a count.
+    m6r = staircase_model(big, device, "float32")
+    st6r, z6r, w6r = solve_model(m6r)
+    first = structured["multiperiod_lp(4096) f32 HSD"]
+    log(f"  repeat of the f32 banded solve: {st6r.name}, "
+        f"{m6r.barrier_iterations} iterations (first run "
+        f"{first[0].barrier_iterations}), objective {z6r!r} (first run "
+        f"{first[2]!r}, equal bit for bit: {z6r == first[2]}), wall "
+        f"{w6r:.4f} s")
+    if args.profile:
+        profile_solve(lambda: m6r.optimize(),
+                      os.path.join(args.profile, "profile_banded_f32.txt"),
+                      w6r)
+
     # -- 7. single-LP entry at defaults, counted ---------------------------
     want = {"lp_opt": (0, 1.5), "lp_inf": (1, None), "lp_ubd": (1, None),
             "lp_freevars": (0, 0.0)}
@@ -1130,6 +1251,9 @@ def main(argv=None):
         f"{sorted(count.shapes['chol'])} (chol-inv, B m per-block)")
     for B, m, n, refine in sorted(count.shapes["solve"]):
         hold_fused(B, m, n, refine, [B + m + n], device)
+    check(STREAMED_TIMED + (1,) in count.shapes["solve"], f"main path: the "
+          f"fused solve never ran at {STREAMED_TIMED}, refine 1")
+    time_fused(*STREAMED_TIMED, 1, device)
     for B, m, p in sorted(count.shapes["chol"]):
         hold_chol(B, m, p, B + m, device)
     blocked = {(B, m) for B, m, _ in count.shapes["chol"]

@@ -138,14 +138,18 @@ def test_registry_matches_reference(name):
 
 
 def test_registry_names():
-    assert sorted(kkt.available_backends()) == ["dense", "dense-pallas",
-                                                "pallas-small"]
+    assert sorted(kkt.available_backends()) == ["banded", "dense",
+                                                "dense-pallas",
+                                                "pallas-small", "sparse"]
     assert SmallK1Backend.name == "pallas-small"
     assert make_backend().name == "dense"
     with pytest.raises(NotImplementedError, match="dense_ldl"):
         make_backend(None, "K2")
     with pytest.raises(ValueError):
         make_backend("dense", "K2")
+    for name, item in [("sparse-smw", "8b"), ("sparse-ldl", "8c")]:
+        with pytest.raises(NotImplementedError, match=item):
+            make_backend(name)
 
 
 def tf32_round(x):
@@ -202,3 +206,32 @@ def test_tf32_round_keeps_ten_mantissa_bits():
     assert r[:5].tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
                               -3.0 - 2.0 ** -9, 0.0]
     assert abs(r[5].item() - 1e-3) <= 1e-3 * 2.0 ** -11
+
+
+@pytest.mark.parametrize("backend", [
+    GramK1Backend(refinement_steps=1),
+    kkt.SmallK1Backend(refinement_steps=1),
+    kkt.SmallK1Backend(refinement_steps=1, fused_solve=True)],
+    ids=["dense-pallas", "pallas-small", "pallas-small-fused"])
+def test_kernel_backends_take_bf16(backend):
+    """The reference's kernel backends take bfloat16
+    (tulip_tpu/kkt/pallas_chol.py:115,176; off the TPU its own bf16 path
+    raises, so there is no reference to hold these to). On CPU tensors the
+    port runs the plain versions in float32 on upcast copies and rounds:
+    update + solve in bfloat16 stay within bfloat16's rounding of the
+    same solve in float32."""
+    rng = np.random.default_rng(4)
+    B, m, n = 3, 10, 20
+    host = [rng.standard_normal((B, m, n)), 10.0 ** rng.uniform(-1, 1, (B, n)),
+            np.full((B, n), 1e-2), np.full((B, m), 1e-2),
+            rng.standard_normal((B, m)), rng.standard_normal((B, n))]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        A, th, rP, rD, xp, xd = (torch.as_tensor(a, dtype=dt) for a in host)
+        st, ok = backend.update(backend.setup(A), th, rP, rD)
+        assert ok.all().item() and st.L.dtype == dt
+        out[dt] = backend.solve(st, xp, xd)
+    for got, ref in zip(out[torch.bfloat16], out[torch.float32]):
+        assert got.dtype == torch.bfloat16
+        assert (got.float() - ref).abs().max() <= 3e-2 * ref.abs().max()
+

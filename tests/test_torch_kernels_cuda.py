@@ -462,3 +462,75 @@ def test_fused_backend_on_card_uses_both_kernels(cuda):
     assert (out.status == int(TerminationStatus.OPTIMAL)).all().item()
     warm = batched_hsd_resolve(be, opts, dats, out)
     assert (warm.status == int(TerminationStatus.OPTIMAL)).all().item()
+
+
+def bf16_close(got, want):
+    """Two float32 results a few ulps apart, each rounded to bfloat16:
+    equal but where they straddle a rounding boundary (one bfloat16 ulp,
+    at most 2⁻⁷ relative), or where the float32 values themselves are
+    tiny against the largest entry."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= 2.0 ** -7 * want.abs()
+                 + 1e-4 * want.abs().max()).all())
+
+
+def test_bf16_kernel_launches_match_plain_rounded(cuda):
+    """bfloat16 input: the kernels run in float32 on an upcast copy and
+    round their result, held against the plain version rounded the same
+    way."""
+    K = spd_batch(5, 48, seed=9, device=cuda).bfloat16()
+    before = chol.KERNEL_LAUNCHES
+    got = batched_cholesky_inverse(K)
+    assert chol.KERNEL_LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    assert bf16_close(got, batched_cholesky_inverse_plain(K.float())
+                      .bfloat16())
+    A, d = (t.bfloat16() for t in gram_inputs(2, 64, 96, seed=9,
+                                              device=cuda))
+    before = gram.KERNEL_LAUNCHES
+    got = scaled_gram(A, d)
+    assert gram.KERNEL_LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    assert bf16_close(got, scaled_gram_plain(A.float(), d.float())
+                      .bfloat16())
+
+
+@pytest.mark.parametrize("name", ["pallas-small", "pallas-small-fused",
+                                  "dense-pallas"])
+def test_bf16_backends_on_card_use_their_kernels(cuda, name):
+    """The reference's two kernel backends take bfloat16
+    (pallas_chol.py:115,176); so do the port's, through their kernels,
+    against the same backend on CPU tensors (the plain versions, rounded
+    the same way)."""
+    from tulip_tpu_torch.kkt import GramK1Backend, SmallK1Backend
+
+    be = {"pallas-small": SmallK1Backend(refinement_steps=1),
+          "pallas-small-fused": SmallK1Backend(refinement_steps=1,
+                                               fused_solve=True),
+          "dense-pallas": GramK1Backend(refinement_steps=1)}[name]
+    rng = np.random.default_rng(10)
+    B, m, n = 4, 24, 48
+    host = [rng.standard_normal((B, m, n)), 10.0 ** rng.uniform(-1, 1, (B, n)),
+            np.full((B, n), 1e-2), np.full((B, m), 1e-2),
+            rng.standard_normal((B, m)), rng.standard_normal((B, n))]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        A, th, rP, rD, xp, xd = (torch.as_tensor(a, dtype=torch.bfloat16,
+                                                 device=dev) for a in host)
+        counts = (chol.KERNEL_LAUNCHES, gram.KERNEL_LAUNCHES,
+                  solve.KERNEL_LAUNCHES)
+        st, ok = be.update(be.setup(A), th, rP, rD)
+        dx, dy = be.solve(st, xp, xd)
+        torch.cuda.synchronize()
+        launched = [a > b for a, b in zip((chol.KERNEL_LAUNCHES,
+                                           gram.KERNEL_LAUNCHES,
+                                           solve.KERNEL_LAUNCHES), counts)]
+        assert ok.all().item() and dx.dtype == dy.dtype == torch.bfloat16
+        out[dev.type] = (dx.cpu(), dy.cpu(), launched)
+    want = {"pallas-small": [True, False, False],
+            "pallas-small-fused": [True, False, True],
+            "dense-pallas": [False, True, False]}[name]
+    assert out["cuda"][2] == want and out["cpu"][2] == [False] * 3
+    for got, ref in zip(out["cuda"][:2], out["cpu"][:2]):
+        # bfloat16 keeps ~3 digits, and the plain versions' products round
+        # at other places: within 2e-2 of the largest entry.
+        assert (got.float() - ref.float()).abs().max() <= \
+            2e-2 * ref.float().abs().max()

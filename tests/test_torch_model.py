@@ -117,7 +117,7 @@ def small_staircase(m, seed=0):
     {"KKT_System": "K2"},
     {"IPM_TolerancePFeas": 1e-10, "IPM_ToleranceDFeas": 1e-10,
      "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
-    {"KKT_Backend": "sparse"},
+    {"KKT_Backend": "sparse-ldl"},
 ], ids=["sparse-first", "K2", "extended", "unported-backend"])
 def test_unported_routes_raise_before_device_work(params):
     """device="cuda" on a machine without CUDA: reaching any device work
@@ -131,16 +131,39 @@ def test_unported_routes_raise_before_device_work(params):
         m.optimize()
 
 
+def small_staircase_dense_cols(m, k):
+    """small_staircase with ``k`` dense linking columns."""
+    from golden_large import staircase_lp
+
+    A, b, c, u = staircase_lp(m, dense_cols=k, dense_scale=1.0)
+    coo = A.tocoo()
+    pb = tlt.ProblemData()
+    pb.load(True, c, 0.0, (coo.row, coo.col, coo.data), b, b,
+            np.zeros(A.shape[1]), u)
+    return pb
+
+
 def test_structure_probe_route_raises():
-    m = tlt.Model(device="cuda")
+    """At m = 2048 with no backend named the probe routes a staircase to
+    "banded"; its answers for dense columns ("sparse-smw", item 8b;
+    "sparse-ldl", item 8c) raise before any device work (the model's
+    device is "cuda", which this machine lacks)."""
+    m = tlt.Model(device="cpu")
     m.pbdata = small_staircase(2048)
-    with pytest.raises(NotImplementedError, match="structure probe"):
-        m.optimize()
-    # Naming a backend takes the dense path instead of the probe.
+    m.params.IPM.IterationsLimit = 0
+    assert m.optimize() == TerminationStatus.ITERATION_LIMIT
+    assert m.kkt_backend.name == "banded"
+    for k, item in [(1, "8b"), (12, "8c")]:
+        m = tlt.Model(device="cuda")
+        m.pbdata = small_staircase_dense_cols(2048, k)
+        with pytest.raises(NotImplementedError, match=item):
+            m.optimize()
+    # Naming a backend takes it instead of the probe.
     m.params.KKT.Backend = "dense"
     m.params.IPM.IterationsLimit = 0
     m.device = torch.device("cpu")
     assert m.optimize() == TerminationStatus.ITERATION_LIMIT
+    assert m.kkt_backend.name == "dense"
 
 
 @pytest.mark.parametrize("exc,status", [

@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 VERBATIM = ["status.py", "problem.py", "solution.py", "params.py",
             "presolve/__init__.py", "presolve/presolve.py",
             "presolve/ops.py", "presolve/native.py", "io/__init__.py",
-            "io/mps.py", "io/native.py", "io/semantics.py", "api.py"]
+            "io/mps.py", "io/native.py", "io/semantics.py", "api.py",
+            "kkt/native.py"]
 
 
 def test_import_does_not_pull_in_jax():
@@ -23,7 +24,9 @@ def test_import_does_not_pull_in_jax():
             "tulip_tpu_torch.cli, tulip_tpu_torch.api, tulip_tpu_torch.io, "
             "tulip_tpu_torch.kkt.gram, tulip_tpu_torch.ops.gram, "
             "tulip_tpu_torch.ops.solve, tulip_tpu_torch.ipm.mpc, "
-            "tulip_tpu_torch.ipm.warmstart; "
+            "tulip_tpu_torch.ipm.warmstart, tulip_tpu_torch.kkt.banded, "
+            "tulip_tpu_torch.kkt.sparse, tulip_tpu_torch.kkt.levels, "
+            "tulip_tpu_torch.kkt.native, tulip_tpu_torch.kkt.sparse_ldl; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "
@@ -45,6 +48,18 @@ def test_host_module_is_verbatim_copy(rel):
     ("model", "_trivial_solve"),
     ("model", "_certificate_tol"),
     ("model", "_validate_certificates"),
+    ("model", "_probe_structure"),
+    ("kkt.sparse_ldl", "dense_threshold"),
+    ("kkt.levels", "_components"),
+    ("kkt.levels", "_bfs_levels"),
+    ("kkt.levels", "nd_block_order"),
+    ("kkt.levels", "tile_fill"),
+    ("kkt.levels", "column_levels"),
+    ("kkt.sparse", "tile_plan"),
+    ("kkt.sparse", "symbolic_schedule"),
+    ("kkt.sparse", "k1_level_plan"),
+    ("kkt.sparse", "k1_level_plan_pattern"),
+    ("kkt.banded", "rcm_bandwidth"),
     ("linprog", "_fill_pbdata"),
     ("utils", "open_maybe_compressed"),
     ("utils", "pos_part"),

@@ -17,9 +17,17 @@ import torch
 from .ipm.data import LPData
 from .ipm.hsd import HSDState
 from .ipm.point import Point, Residuals
+from .kkt.banded import BandedK1State
 from .kkt.dense import DenseK1State
+from .kkt.levels import LevelSeg
+from .kkt.sparse import SparseK1LevelState, SparseK1State
 
 _INT_FIELDS = ("niter", "status", "primal_status", "dual_status")
+_STRUCTURED = {cls.__name__: cls for cls in (SparseK1LevelState,
+                                             SparseK1State, BandedK1State)}
+# Fields of the structured states that index (the plan), not per-LP values.
+_INDEX_FIELDS = ("perm", "sup_idx", "sup_tile", "col_ids", "col_blkrows",
+                 "u_a", "u_b", "u_tgt")
 
 
 def _tensor(v, device, dtype) -> torch.Tensor:
@@ -64,3 +72,29 @@ def hsd_state_to_numpy(state: HSDState) -> dict:
         return v.detach().cpu().numpy()
 
     return conv(state)
+
+
+def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
+                                dtype=torch.float64):
+    """A structured K1 state of this package from the JAX package's, given
+    as the name of its class (``"SparseK1LevelState"``,
+    ``"SparseK1State"`` or ``"BandedK1State"``) and a dict of its fields as
+    numpy arrays. A level state's ``d["segs"]`` is a sequence of dicts of
+    ``LevelSeg`` fields: its plan's level schedule.
+
+    Index fields become int64 tensors with no lane axis; every other field
+    gains the leading lane axis of 1 that this package's states carry.
+    """
+    cls = _STRUCTURED[kind]
+    fields = {}
+    for f in cls._fields:
+        if f == "segs":
+            fields[f] = tuple(
+                LevelSeg(**{k: _tensor(seg[k], device, torch.int64)
+                            for k in LevelSeg._fields})
+                for seg in d[f])
+        elif f in _INDEX_FIELDS:
+            fields[f] = _tensor(d[f], device, torch.int64)
+        else:
+            fields[f] = _tensor(np.asarray(d[f])[None], device, dtype)
+    return cls(**fields)

@@ -117,12 +117,13 @@ def _data_norms(dat: LPData) -> DataNorms:
 
 def tree_where(mask: torch.Tensor, a, b):
     """Per-lane select over matching NamedTuples of tensors: lane i takes
-    ``a`` where ``mask[i]`` is true, else ``b``. Leaves that are the same
-    tensor object are passed through."""
-    if isinstance(a, tuple):
-        return type(a)(*(tree_where(mask, x, y) for x, y in zip(a, b)))
+    ``a`` where ``mask[i]`` is true, else ``b``. Leaves and subtrees that
+    are the same object are passed through (a structured KKT state's plan:
+    its index tensors and its tuple of level schedules)."""
     if a is b:
         return a
+    if isinstance(a, tuple):
+        return type(a)(*(tree_where(mask, x, y) for x, y in zip(a, b)))
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 

@@ -20,16 +20,19 @@ from __future__ import annotations
 
 from typing import Dict, Type
 
+from .banded import BandedK1Backend
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
 from .gram import GramK1Backend
 from .small_k1 import SmallK1Backend
+from .sparse import SparseK1Backend
 
 _REGISTRY: Dict[str, Type[KKTBackend]] = {}
 
 _PRECISION = "ROADMAP queue 1, item 6 (precision ladder)"
 _K2 = "ROADMAP queue 1, item 7 (kkt/dense_ldl.py)"
-_STRUCTURED = "ROADMAP queue 1, item 8 (structured direct backends)"
+_SPARSE_FIRST = "ROADMAP queue 1, item 8b (the sparse-first data path)"
+_SPARSE_K2 = "ROADMAP queue 1, item 8c (kkt/sparse_ldl.py)"
 _KRYLOV = "ROADMAP queue 1, item 9 (kkt/krylov.py)"
 _DISTRIBUTED = "ROADMAP queue 1, item 10 (distributed Schur path)"
 
@@ -39,8 +42,7 @@ UNPORTED: Dict[str, str] = {
     "dense-mixed": _PRECISION, "extended": _PRECISION,
     "extended-dd": _PRECISION,
     "dense-ldl": _K2,
-    "banded": _STRUCTURED, "sparse": _STRUCTURED,
-    "sparse-ldl": _STRUCTURED, "sparse-smw": _STRUCTURED,
+    "sparse-smw": _SPARSE_FIRST, "sparse-ldl": _SPARSE_K2,
     **{k: _KRYLOV for k in ("car", "cg", "cr", "craig", "craigmr", "lsmr",
                             "lsqr", "minares", "minres", "minres-qlp",
                             "sqd-minres", "symmlq", "tricg")},
@@ -53,7 +55,8 @@ def register(cls: Type[KKTBackend]) -> Type[KKTBackend]:
     return cls
 
 
-for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend):
+for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend,
+             BandedK1Backend, SparseK1Backend):
     register(_cls)
 
 
@@ -77,5 +80,5 @@ def make_backend(name=None, system=None, refinement_steps: int = 0,
 
 
 __all__ = ["KKTBackend", "DenseK1Backend", "DenseK1State", "GramK1Backend",
-           "SmallK1Backend", "make_backend", "available_backends",
-           "register"]
+           "SmallK1Backend", "BandedK1Backend", "SparseK1Backend",
+           "make_backend", "available_backends", "register"]

@@ -14,6 +14,9 @@ from ..ops.solve import batched_fused_k1_solve
 from .dense import DenseK1Backend, DenseK1State, identity_where_failed, \
     normal_matrix
 
+# Dtypes the reference sends to its kernels (pallas_chol.py:115).
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
 
 @dataclasses.dataclass(frozen=True)
 class SmallK1Backend(DenseK1Backend):
@@ -22,8 +25,9 @@ class SmallK1Backend(DenseK1Backend):
     the port of ``PallasSmallK1Backend``. Solves are GEMVs with L⁻¹.
 
     Routing follows the reference (``pallas_chol.py:112-117``): float32
-    with m ≤ 1024 goes to ``batched_cholesky_inverse``, which launches the
-    kernel on a CUDA tensor and runs its plain version on a CPU tensor;
+    or bfloat16 with m ≤ 1024 goes to ``batched_cholesky_inverse``, which
+    launches the kernel on a CUDA tensor and runs its plain version on a
+    CPU tensor (bfloat16 in float32 on an upcast copy, L⁻¹ rounded back);
     float64, or m > 1024, goes to ``DenseK1Backend(inv_factor=True)``.
 
     ``fused_solve=True`` sends ``solve`` (with its ``refinement_steps``
@@ -53,7 +57,7 @@ class SmallK1Backend(DenseK1Backend):
 
     def update(self, state: DenseK1State, theta_inv, regP, regD):
         A = state.A
-        if A.dtype != torch.float32 or A.shape[-2] > MAX_M:
+        if A.dtype not in _KERNEL_DTYPES or A.shape[-2] > MAX_M:
             return DenseK1Backend.update(self, state, theta_inv, regP, regD)
         theta_reg = theta_inv + regP
         d = 1.0 / theta_reg
@@ -65,7 +69,7 @@ class SmallK1Backend(DenseK1Backend):
 
     def solve(self, state: DenseK1State, xi_p, xi_d):
         A = state.A
-        if not (self.fused_solve and A.dtype == torch.float32
+        if not (self.fused_solve and A.dtype in _KERNEL_DTYPES
                 and A.shape[-2] <= MAX_M):
             return DenseK1Backend.solve(self, state, xi_p, xi_d)
         args = (A, state.L, state.d, state.theta_reg, state.regD, xi_p, xi_d)

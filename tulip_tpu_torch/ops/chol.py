@@ -134,8 +134,13 @@ def batched_cholesky_inverse(K: torch.Tensor, block: int = 0,
     budget. The output does not depend on ``pack``. ``block`` is the TPU
     kernel's count of instances per grid step; the CUDA kernel has no such
     step, so it is accepted for parity and unused.
+
+    bfloat16 K (which the reference's kernel takes) runs in float32 on an
+    upcast copy, on either device, and L⁻¹ is rounded to bfloat16.
     """
     del block
+    if K.dtype == torch.bfloat16:
+        return batched_cholesky_inverse(K.float(), pack=pack).to(K.dtype)
     if K.device.type == "cuda":
         return _launch(K, pack)
     if K.device.type == "cpu":

@@ -77,8 +77,12 @@ def scaled_gram(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """K = A·diag(d)·Aᵀ per lane for A (B, m, n), d (B, n).
 
     CUDA tensors go to the hand-written kernel (float32, contiguous;
-    anything else raises); CPU tensors to the plain version.
+    anything else raises); CPU tensors to the plain version. bfloat16 A
+    and d (which the reference's kernel takes) run in float32 on upcast
+    copies, on either device, and K is rounded to bfloat16.
     """
+    if A.dtype == torch.bfloat16 and d.dtype == torch.bfloat16:
+        return scaled_gram(A.float(), d.float()).to(A.dtype)
     if A.device.type == "cuda":
         return _launch(A, d)
     if A.device.type == "cpu":

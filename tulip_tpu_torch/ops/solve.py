@@ -150,8 +150,16 @@ def batched_fused_k1_solve(A, Li, d, treg, regD, xi_p, xi_d,
     plain version. ``block`` exists for parity with the reference: it is
     the TPU kernel's count of instances per grid step, while the CUDA
     kernel always gives each instance its own thread block.
+
+    bfloat16 inputs (which the reference's kernel takes) run in float32 on
+    upcast copies, on either device, and dx, dy are rounded to bfloat16.
     """
     del block
+    args = (A, Li, d, treg, regD, xi_p, xi_d)
+    if all(t.dtype == torch.bfloat16 for t in args):
+        dx, dy = batched_fused_k1_solve(*(t.float() for t in args),
+                                        refine=refine)
+        return dx.to(A.dtype), dy.to(A.dtype)
     if A.device.type == "cuda":
         return _launch(A, Li, d, treg, regD, xi_p, xi_d, refine)
     if A.device.type == "cpu":
