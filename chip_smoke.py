@@ -59,9 +59,27 @@ Phases, each of which exits non-zero on a failed check:
    in f64, 1e-3 in f32); iterations, walls, ``Model.timings`` and ms per
    iteration beside phase 6's walls on the same LP. No kernel of ours is
    on this route (the level engine is torch.linalg and cuBLAS);
+6c. sparse-first and SMW routes: ``Model.optimize()`` at its defaults in
+   f64 on ``multiperiod_lp(8192)`` (m = 8192 reaches
+   ``SparseFirstThreshold``: the standard form goes from COO into
+   compressed tiles, never a dense A, and solves through ``"sparse"``; the
+   solve's peak device memory must stay below the 811.6 MB of a dense f64
+   A), on ``staircase_lp(8192, dense_cols=2)`` (sparse-first to
+   ``"sparse-smw"``, U of width 2, the SparseLPData as its full operator)
+   and on ``staircase_lp(4096, dense_cols=2)`` (the dense data, where the
+   probe answers ``"sparse-smw"``): OPTIMAL within 1e-6 of HiGHS;
+   iterations, walls, ``Model.timings``, the host symbolic seconds, the
+   SparseLPData's bytes and ms per iteration beside phase 6b's. No kernel
+   of ours is on these routes;
 7. single-LP entry at defaults: the CLI on ``tests/data/*.mps`` (f64) and
    ``Model.optimize()`` on ``multiperiod_lp(1024)`` in f64 (``"dense"``)
    and in f32 (``"pallas-small"``, the chol-inv kernel at B = 1);
+7b. K2: ``Model.optimize()`` with ``KKT_System="K2"`` on
+   ``multiperiod_lp(1024)`` in f64 (``"dense-ldl"``: the blocked unpivoted
+   LDLᵀ of the Schur block), OPTIMAL within 1e-6 of HiGHS, iterations and
+   ms per iteration beside phase 7's ``"dense"``; the CLI with
+   ``--KKTBackend dense-ldl --Presolve 0`` on ``tests/data/*.mps``, with
+   the statuses the JAX package gives on the CPU;
 8. MPC: ``batch_linprog(algorithm="MPC")`` at its defaults on the 64
    problems of phase 5 (statuses as the JAX package gives them on the CPU,
    objectives against HiGHS), ``Model`` with ``IPM_Algorithm="MPC"`` on
@@ -77,13 +95,14 @@ Phases, each of which exits non-zero on a failed check:
    that shape with phase 3's and 3c's bars; the chol-inv shapes must
    include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 (6b included) are the main path: every kernel's launch count
-is reset just before each of them and read just after. The last lines are the card's
-name and power limit, a JSON list of the kernels with their launches,
-errors, times and bounds, and the JSON result
+Phases 4-9 (6b, 6c and 7b included) are the main path: every kernel's
+launch count is reset just before each of them and read just after. The
+last lines are the card's name and power limit, a JSON list of the
+kernels with their launches, errors, times and bounds, and the JSON result
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
-phase-6 solve and of phase 6b's banded f32 solve to DIR.
+phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
+``multiperiod_lp(8192)`` and of phase 7b's K2 solve to DIR.
 """
 
 from __future__ import annotations
@@ -128,6 +147,11 @@ STREAMED_TIMED = (4, 256, 512)
 # instance NUMERICAL_PROBLEM, the unbounded one DUAL_INFEASIBLE (decided by
 # presolve). scipy codes: 0 optimal, 4 numerical, 3 unbounded.
 MPC_ENTRY_STATUS = [0] * 62 + [4, 3]
+# The JAX package's statuses for ``--KKTBackend dense-ldl --Presolve 0`` on
+# tests/data/*.mps on the CPU (with presolve on, presolve decides the two
+# infeasible files before any K2 solve).
+K2_CLI_STATUS = {"lp_opt": "OPTIMAL", "lp_inf": "PRIMAL_INFEASIBLE",
+                 "lp_ubd": "DUAL_INFEASIBLE", "lp_freevars": "OPTIMAL"}
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
 # memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
@@ -601,10 +625,11 @@ def phase_gram(device):
 # Phases 6 and 7: one LP
 # ---------------------------------------------------------------------------
 
-def staircase_lp(m, mr=64, nc=96, seed=0):
+def staircase_lp(m, mr=64, nc=96, dense_cols=0, seed=0):
     """Staircase equality LP, a copy of tests/golden_large.py:staircase_lp
-    (same seed, same LP) without the JAX package that file imports:
-    min c'x s.t. Ax = b, 0 <= x <= u, b = A x0 for an interior x0."""
+    (same seed, same LP; not cyclic) without the JAX package that file
+    imports: min c'x s.t. Ax = b, 0 <= x <= u, b = A x0 for an interior
+    x0; ``dense_cols`` adds global linking columns."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
@@ -618,6 +643,10 @@ def staircase_lp(m, mr=64, nc=96, seed=0):
             I.append(ii.ravel())
             J.append(jj.ravel())
             V.append(rng.standard_normal(mr * nc))
+    for k in range(dense_cols):
+        I.append(np.arange(m))
+        J.append(np.full(m, (7 * k) % n))
+        V.append(rng.standard_normal(m) * 0.5)
     I, J, V = map(np.concatenate, (I, J, V))
     A = sp.csr_matrix((V, (I, J)), shape=(m, n))
     u = rng.uniform(1, 3, n)
@@ -723,20 +752,52 @@ def host_symbolic_s(mod, device):
 
 def run_cli(path, device, *flags):
     """The CLI's ``main`` at its defaults and ``flags``; returns (rc,
-    objective or None, iteration-log rows)."""
+    objective or None, iteration-log rows, status word of the result
+    line)."""
     from tulip_tpu_torch import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([*flags, path], device=device)
     out = buf.getvalue()
-    z = None
+    z = status = None
     for line in out.splitlines():
-        if line.startswith("result:") and " objective " in line:
-            z = float(line.split(" objective ")[1].split()[0])
+        if line.startswith("result:"):
+            status = line.split()[1]
+            if " objective " in line:
+                z = float(line.split(" objective ")[1].split()[0])
     rows = sum(1 for line in out.splitlines()
                if line[:4].strip().isdigit() and "e" in line)
-    return rc, z, rows
+    return rc, z, rows, status
+
+
+def tensor_bytes(tree):
+    """Bytes of the tensors of a NamedTuple tree (a SparseLPData with its
+    level schedule)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, tuple):
+        return sum(tensor_bytes(x) for x in tree)
+    return 0
+
+
+def sparse_first_symbolic_s(mod, device):
+    """(seconds, SparseLPData bytes on the card) of the sparse-first
+    standard form of a solved Model's LP, built again alone from the LP
+    as loaded (COO → tile plan → compressed blocks → copies to the card),
+    and the seconds of its backend's setup from that data (the tile
+    operands' gathers on the card)."""
+    from tulip_tpu_torch.ipm.sparse_data import sparse_lp_data_from_problem
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dat = sparse_lp_data_from_problem(mod.pbdata, device=device)[0]
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mod.kkt_backend.setup_data(dat)
+    torch.cuda.synchronize()
+    return plan_s, tensor_bytes(dat), time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -1145,6 +1206,88 @@ def main(argv=None):
                       os.path.join(args.profile, "profile_banded_f32.txt"),
                       w6r)
 
+    # -- 6c. the sparse-first and SMW routes at the defaults, counted ------
+    from tulip_tpu_torch.ipm.sparse_data import SparseLPData
+
+    runs6c = [("multiperiod_lp(8192)", staircase_lp(8192), "sparse", True),
+              ("staircase_lp(8192, dense_cols=2)",
+               staircase_lp(8192, dense_cols=2), "sparse-smw", True),
+              ("staircase_lp(4096, dense_cols=2)",
+               staircase_lp(4096, dense_cols=2), "sparse-smw", False)]
+    refs6c = {what: highs_staircase(*lp) for what, lp, _, _ in runs6c}
+    sparse_first = {}
+    with count.phase() as n6c:
+        for what, lp, want_be, sf in runs6c:
+            m6c = staircase_model(lp, device, "float64")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            st6c, z6c, w6c = solve_model(m6c)
+            peak = torch.cuda.max_memory_allocated() - base
+            sparse_first[what] = (m6c, st6c, z6c, w6c, peak)
+    for what, lp, want_be, sf in runs6c:
+        m6c, st6c, z6c, w6c, peak = sparse_first[what]
+        A = lp[0]
+        dense_bytes = A.shape[0] * A.shape[1] * 8
+        check(m6c.kkt_backend.name == want_be, f"{what}: routed to "
+              f"{m6c.kkt_backend.name!r}, not {want_be!r}")
+        kkt = m6c.solver_state.kkt
+        kind = type(kkt).__name__
+        if want_be == "sparse":
+            # The dense route's "sparse" plans at block 64; the
+            # sparse-first data at 128, from which this state was built.
+            check(kind == "SparseK1LevelState" and kkt.Apc.shape[2] == 128,
+                  f"{what}: a {kind} of block {kkt.Apc.shape[2]}, not the "
+                  f"level state of the sparse-first data")
+        else:
+            check(kind == "SplitK1State" and kkt.U.shape[-1] == 2,
+                  f"{what}: a {kind}, not an SMW state with U of width 2")
+            check(isinstance(kkt.A, SparseLPData) == sf,
+                  f"{what}: the operator is a {type(kkt.A).__name__}")
+        check(st6c.name == "OPTIMAL", f"{what}: status {st6c.name}")
+        err = check_objective(what, z6c, refs6c[what], 1e-6)
+        it = m6c.barrier_iterations
+        op = type(kkt.A).__name__ if hasattr(kkt, "A") else "none"
+        log(f"[6c] {what} at the defaults: {want_be} ({kind}, full operator "
+            f"{op}), OPTIMAL, objective {z6c!r} vs HiGHS {refs6c[what]!r} "
+            f"(rel {err:.3e}); {describe(m6c, w6c)}")
+        if sf:
+            plan_s, dat_bytes, setup_s = sparse_first_symbolic_s(m6c, device)
+            check(peak < dense_bytes, f"{what}: the solve's peak device "
+                  f"memory {peak} B is not below the dense A's "
+                  f"{dense_bytes} B")
+            log(f"  sparse-first: SparseLPData {dat_bytes / 1e6:.3f} MB on "
+                f"the card against {dense_bytes / 1e6:.3f} MB for a dense "
+                f"f64 A; the solve's peak device memory "
+                f"{peak / 1e6:.3f} MB above the {base / 1e6:.3f} MB held "
+                f"before it (max_memory_allocated "
+                f"{(peak + base) / 1e6:.3f} MB)")
+            log(f"  host symbolic phase, timed again alone: COO -> tile plan "
+                f"-> SparseLPData on the card {plan_s:.4f} s (inside "
+                f"'standard_form'), backend setup {setup_s:.4f} s (inside "
+                f"'ipm'); the IPM without its setup "
+                f"{(m6c.timings['ipm'] - setup_s) / it * 1e3:.3f} ms per "
+                f"iteration")
+        else:
+            probe_s, setup_s = host_symbolic_s(m6c, device)
+            log(f"  dense data, probe -> sparse-smw: probe {probe_s:.4f} s "
+                f"(outside the timings), backend setup {setup_s:.4f} s "
+                f"(inside 'ipm'); the IPM without its setup "
+                f"{(m6c.timings['ipm'] - setup_s) / it * 1e3:.3f} ms per "
+                f"iteration; peak device memory {peak / 1e6:.3f} MB above "
+                f"the {base / 1e6:.3f} MB held before")
+    for what, (m6b, _, _, w6b, _, _, _) in structured.items():
+        log(f"  beside phase 6b's {what}: {m6b.barrier_iterations} "
+            f"iterations, wall {w6b:.4f} s, "
+            f"{m6b.timings['ipm'] / m6b.barrier_iterations * 1e3:.3f} ms "
+            f"per iteration")
+    log(f"  launches {n6c}; {card}")
+    if args.profile:
+        m6c, _, _, w6c, _ = sparse_first["multiperiod_lp(8192)"]
+        profile_solve(lambda: m6c.optimize(),
+                      os.path.join(args.profile, "profile_sparse_first.txt"),
+                      w6c)
+
     # -- 7. single-LP entry at defaults, counted ---------------------------
     want = {"lp_opt": (0, 1.5), "lp_inf": (1, None), "lp_ubd": (1, None),
             "lp_freevars": (0, 0.0)}
@@ -1152,7 +1295,7 @@ def main(argv=None):
     ref_small = highs_staircase(*small)
     with count.phase() as n7:
         for name, (rc_want, z_want) in want.items():
-            rc, zc, rows = run_cli(os.path.join(ROOT, "tests", "data",
+            rc, zc, rows, _ = run_cli(os.path.join(ROOT, "tests", "data",
                                                 f"{name}.mps"), device)
             check(rc == rc_want, f"cli {name}: rc {rc}, expected {rc_want}")
             if z_want is not None:
@@ -1180,6 +1323,40 @@ def main(argv=None):
         f"{z32!r} vs HiGHS (rel {err32:.3e}); {describe(mod32, wall32)}; "
         f"launches {n7}")
 
+    # -- 7b. System="K2" through dense-ldl, counted -----------------------
+    with count.phase() as n7b:
+        mod_k2 = staircase_model(small, device, "float64")
+        mod_k2.params.KKT.System = "K2"
+        st_k2, z_k2, wall_k2 = solve_model(mod_k2)
+        cli_k2 = {name: run_cli(os.path.join(ROOT, "tests", "data",
+                                             f"{name}.mps"), device,
+                                "--KKTBackend", "dense-ldl", "--Presolve", "0")
+                  for name in want}
+    check(mod_k2.kkt_backend.name == "dense-ldl", f"K2 routed to "
+          f"{mod_k2.kkt_backend.name!r}, not 'dense-ldl'")
+    check(st_k2.name == "OPTIMAL", f"multiperiod_lp(1024) K2: {st_k2.name}")
+    err_k2 = check_objective("multiperiod_lp(1024) K2", z_k2, ref_small, 1e-6)
+    log(f"[7b] multiperiod_lp(1024) f64 KKT_System='K2' (dense-ldl): "
+        f"objective {z_k2!r} vs HiGHS (rel {err_k2:.3e}); "
+        f"{describe(mod_k2, wall_k2)}; beside phase 7's 'dense' on the "
+        f"same LP: {mod64.barrier_iterations} iterations, "
+        f"{mod64.timings['ipm'] / mod64.barrier_iterations * 1e3:.3f} ms "
+        f"per iteration; launches {n7b}")
+    if args.profile:
+        profile_solve(lambda: mod_k2.optimize(),
+                      os.path.join(args.profile, "profile_k2.txt"), wall_k2)
+    for name, (rc, zc, rows, status) in cli_k2.items():
+        rc_want, z_want = want[name]
+        check(rc == rc_want and status == K2_CLI_STATUS[name],
+              f"cli --KKTBackend dense-ldl {name}: rc {rc}, {status}; the "
+              f"JAX package gives rc {rc_want}, {K2_CLI_STATUS[name]}")
+        if z_want is not None:
+            check(zc is not None and abs(zc - z_want) <= 1e-6,
+                  f"cli --KKTBackend dense-ldl {name}: objective {zc}, "
+                  f"expected {z_want}")
+        log(f"  cli --KKTBackend dense-ldl --Presolve 0 {name}.mps: rc {rc}, "
+            f"{status}, objective {zc!r}, {rows} iteration-log rows")
+
     # -- 8. MPC, counted ---------------------------------------------------
     with count.phase() as n8:
         res_m = batch_linprog(probs, algorithm="MPC")
@@ -1203,7 +1380,7 @@ def main(argv=None):
                             1e-6)
     log(f"  multiperiod_lp(1024) f64 MPC (dense): objective {z_m!r} (rel "
         f"{err_m:.3e}); {describe(mod_m, wall_m)}")
-    for name, (rc, zc, rows) in cli_m.items():
+    for name, (rc, zc, rows, _) in cli_m.items():
         rc_want, z_want = want[name]
         check(rc == rc_want, f"cli --Method MPC {name}: rc {rc}, expected "
               f"{rc_want}")

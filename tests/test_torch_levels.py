@@ -343,8 +343,25 @@ def test_host_A_is_what_setup_reads():
 
 
 def test_sparse_first_data_raises_naming_item_8b():
-    class SparseData:  # LP data without a dense A, as sparse-first data
+    """Item 8b is ported: sparse-first data (``SparseLPData``, no dense A)
+    no longer raises but sets up the level state from its compressed
+    blocks; LP data that is neither it nor dense still fails."""
+    from tulip_tpu_torch.ipm.sparse_data import sparse_lp_data_from_problem
+    from tulip_tpu_torch.problem import ProblemData
+
+    A = staircase(cyclic=True, seed=1)
+    pb = ProblemData()
+    I, J = np.nonzero(A)
+    b = A @ np.full(A.shape[1], 0.5)
+    pb.load(True, np.ones(A.shape[1]), 0.0, (I, J, A[I, J]), b, b,
+            np.zeros(A.shape[1]), np.ones(A.shape[1]))
+    dat = sparse_lp_data_from_problem(pb, block=16, device="cpu")[0]
+    st = tsparse.SparseK1Backend().setup_data(dat)
+    assert isinstance(st, tsparse.SparseK1LevelState)
+    assert st.Apc is dat.Apc
+
+    class SparseData:  # LP data without a dense A, of no known type
         c = None
 
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(AttributeError):
         tsparse.SparseK1Backend().setup_data(SparseData())

@@ -113,12 +113,10 @@ def small_staircase(m, seed=0):
 
 
 @pytest.mark.parametrize("params", [
-    {"KKT_SparseFirst": True},
-    {"KKT_System": "K2"},
     {"IPM_TolerancePFeas": 1e-10, "IPM_ToleranceDFeas": 1e-10,
      "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
     {"KKT_Backend": "sparse-ldl"},
-], ids=["sparse-first", "K2", "extended", "unported-backend"])
+], ids=["extended", "unported-backend"])
 def test_unported_routes_raise_before_device_work(params):
     """device="cuda" on a machine without CUDA: reaching any device work
     would raise something else than NotImplementedError."""
@@ -129,6 +127,22 @@ def test_unported_routes_raise_before_device_work(params):
         tlt.set_parameter(m, k, v)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.optimize()
+
+
+@pytest.mark.parametrize("key,value,backend", [
+    ("KKT_SparseFirst", True, "dense"),
+    ("KKT_System", "K2", "dense-ldl"),
+], ids=["sparse-first", "K2"])
+def test_ported_routes_solve(key, value, backend):
+    """The sparse-first path (item 8b) and System="K2" below m = 2048
+    (item 7) solve the file on the CPU; sparse-first falls back to the
+    dense data on a file this small, as the reference does."""
+    m = tlt.Model(device="cpu")
+    m.pbdata = tlt.read_mps(str(DATA / "lp_freevars.mps"))
+    m.params.Presolve.Level = 0
+    tlt.set_parameter(m, key, value)
+    assert m.optimize() == TerminationStatus.OPTIMAL
+    assert m.kkt_backend.name == backend
 
 
 def small_staircase_dense_cols(m, k):
@@ -145,19 +159,21 @@ def small_staircase_dense_cols(m, k):
 
 def test_structure_probe_route_raises():
     """At m = 2048 with no backend named the probe routes a staircase to
-    "banded"; its answers for dense columns ("sparse-smw", item 8b;
-    "sparse-ldl", item 8c) raise before any device work (the model's
-    device is "cuda", which this machine lacks)."""
-    m = tlt.Model(device="cpu")
-    m.pbdata = small_staircase(2048)
-    m.params.IPM.IterationsLimit = 0
-    assert m.optimize() == TerminationStatus.ITERATION_LIMIT
-    assert m.kkt_backend.name == "banded"
-    for k, item in [(1, "8b"), (12, "8c")]:
-        m = tlt.Model(device="cuda")
-        m.pbdata = small_staircase_dense_cols(2048, k)
-        with pytest.raises(NotImplementedError, match=item):
-            m.optimize()
+    "banded", and one with a dense column to "sparse-smw" (item 8b,
+    ported); its answer for many dense columns ("sparse-ldl", item 8c)
+    raises before any device work (the model's device is "cuda", which
+    this machine lacks)."""
+    for k, name in [(0, "banded"), (1, "sparse-smw")]:
+        m = tlt.Model(device="cpu")
+        m.pbdata = (small_staircase_dense_cols(2048, k) if k
+                    else small_staircase(2048))
+        m.params.IPM.IterationsLimit = 0
+        assert m.optimize() == TerminationStatus.ITERATION_LIMIT
+        assert m.kkt_backend.name == name
+    m = tlt.Model(device="cuda")
+    m.pbdata = small_staircase_dense_cols(2048, 12)
+    with pytest.raises(NotImplementedError, match="8c"):
+        m.optimize()
     # Naming a backend takes it instead of the probe.
     m.params.KKT.Backend = "dense"
     m.params.IPM.IterationsLimit = 0

@@ -26,7 +26,9 @@ def test_import_does_not_pull_in_jax():
             "tulip_tpu_torch.ops.solve, tulip_tpu_torch.ipm.mpc, "
             "tulip_tpu_torch.ipm.warmstart, tulip_tpu_torch.kkt.banded, "
             "tulip_tpu_torch.kkt.sparse, tulip_tpu_torch.kkt.levels, "
-            "tulip_tpu_torch.kkt.native, tulip_tpu_torch.kkt.sparse_ldl; "
+            "tulip_tpu_torch.kkt.native, tulip_tpu_torch.kkt.sparse_ldl, "
+            "tulip_tpu_torch.ipm.sparse_data, tulip_tpu_torch.kkt.splitting, "
+            "tulip_tpu_torch.kkt.dense_ldl; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "
@@ -50,6 +52,8 @@ def test_host_module_is_verbatim_copy(rel):
     ("model", "_validate_certificates"),
     ("model", "_probe_structure"),
     ("kkt.sparse_ldl", "dense_threshold"),
+    ("ipm.sparse_data", "standard_form_coo"),
+    ("ipm.sparse_data", "sparse_pattern_signals"),
     ("kkt.levels", "_components"),
     ("kkt.levels", "_bfs_levels"),
     ("kkt.levels", "nd_block_order"),

@@ -1,8 +1,9 @@
 """Carry LP data and solver state across from the JAX package.
 
 The JAX package's pytrees (``LPData``, ``HSDState`` with a ``DenseK1State``
-in its ``kkt`` field) are given here as dicts of numpy arrays, nested the
-same way, keyed by field name, batch-first as ``jax.vmap`` leaves them. This
+in its ``kkt`` field, ``SparseLPData`` and the structured KKT states) are
+given here as dicts of numpy arrays, nested the same way, keyed by field
+name; batched ones batch-first as ``jax.vmap`` leaves them. This
 module imports no JAX: the caller flattens the pytree to numpy (e.g.
 ``{k: np.asarray(v) for k, v in tree._asdict().items()}`` per level).
 """
@@ -17,17 +18,23 @@ import torch
 from .ipm.data import LPData
 from .ipm.hsd import HSDState
 from .ipm.point import Point, Residuals
+from .ipm.sparse_data import SparseLPData
 from .kkt.banded import BandedK1State
 from .kkt.dense import DenseK1State
+from .kkt.dense_ldl import DenseK2State
 from .kkt.levels import LevelSeg
 from .kkt.sparse import SparseK1LevelState, SparseK1State
+from .kkt.splitting import SplitK1State
 
 _INT_FIELDS = ("niter", "status", "primal_status", "dual_status")
-_STRUCTURED = {cls.__name__: cls for cls in (SparseK1LevelState,
-                                             SparseK1State, BandedK1State)}
-# Fields of the structured states that index (the plan), not per-LP values.
+_STRUCTURED = {cls.__name__: cls for cls in (
+    SparseK1LevelState, SparseK1State, BandedK1State, SplitK1State,
+    DenseK2State)}
+# Fields of the structured states and of SparseLPData that index (the
+# plan), not per-LP values.
 _INDEX_FIELDS = ("perm", "sup_idx", "sup_tile", "col_ids", "col_blkrows",
-                 "u_a", "u_b", "u_tgt")
+                 "u_a", "u_b", "u_tgt", "rsup_idx", "dense_idx", "tile_brow",
+                 "tile_bcol")
 
 
 def _tensor(v, device, dtype) -> torch.Tensor:
@@ -74,21 +81,18 @@ def hsd_state_to_numpy(state: HSDState) -> dict:
     return conv(state)
 
 
-def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
-                                dtype=torch.float64):
-    """A structured K1 state of this package from the JAX package's, given
-    as the name of its class (``"SparseK1LevelState"``,
-    ``"SparseK1State"`` or ``"BandedK1State"``) and a dict of its fields as
-    numpy arrays. A level state's ``d["segs"]`` is a sequence of dicts of
-    ``LevelSeg`` fields: its plan's level schedule.
-
-    Index fields become int64 tensors with no lane axis; every other field
-    gains the leading lane axis of 1 that this package's states carry.
-    """
-    cls = _STRUCTURED[kind]
+def _lane_fields(cls, d: Mapping, device, dtype, nested=None) -> dict:
+    """The fields of ``cls`` from ``d``: ``segs`` as a tuple of
+    ``LevelSeg``, index fields as int64 tensors with no lane axis, the
+    fields named in ``nested`` converted by their function, and every
+    other field with the leading lane axis of 1 that this package's
+    one-LP states carry."""
+    nested = nested or {}
     fields = {}
     for f in cls._fields:
-        if f == "segs":
+        if f in nested:
+            fields[f] = nested[f](d[f])
+        elif f == "segs":
             fields[f] = tuple(
                 LevelSeg(**{k: _tensor(seg[k], device, torch.int64)
                             for k in LevelSeg._fields})
@@ -97,4 +101,46 @@ def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
             fields[f] = _tensor(d[f], device, torch.int64)
         else:
             fields[f] = _tensor(np.asarray(d[f])[None], device, dtype)
-    return cls(**fields)
+    return fields
+
+
+def sparse_lp_data_from_numpy(d: Mapping, *, device="cuda",
+                              dtype=torch.float64) -> SparseLPData:
+    """SparseLPData from the JAX package's, as a dict of its fields as
+    numpy arrays (``d["segs"]`` a sequence of dicts of ``LevelSeg``
+    fields); its ``dense_onehot`` field, which this package does not
+    carry, is ignored."""
+    return SparseLPData(**_lane_fields(SparseLPData, d, device, dtype))
+
+
+def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
+                                dtype=torch.float64):
+    """A structured KKT state of this package from the JAX package's,
+    given as the name of its class (``"SparseK1LevelState"``,
+    ``"SparseK1State"``, ``"BandedK1State"``, ``"SplitK1State"`` or
+    ``"DenseK2State"``) and a dict of its fields as numpy arrays. A level
+    state's ``d["segs"]`` is a sequence of dicts of ``LevelSeg`` fields: its
+    plan's level schedule.
+
+    Index fields become int64 tensors with no lane axis; every other field
+    gains the leading lane axis of 1 that this package's states carry. A
+    ``SplitK1State``'s ``d["inner"]`` is the dict of its tiled state (a
+    level state when it has ``"segs"``), and its ``d["A"]`` is either the
+    dense A or the dict of a ``SparseLPData``.
+    """
+    cls = _STRUCTURED[kind]
+    nested = {}
+    if cls is SplitK1State:
+        def inner(x):
+            k = "SparseK1LevelState" if "segs" in x else "SparseK1State"
+            return structured_state_from_numpy(k, x, device=device,
+                                               dtype=dtype)
+
+        def full_A(x):
+            if isinstance(x, Mapping):
+                return sparse_lp_data_from_numpy(x, device=device,
+                                                 dtype=dtype)
+            return _tensor(np.asarray(x)[None], device, dtype)
+
+        nested = {"inner": inner, "A": full_A}
+    return cls(**_lane_fields(cls, d, device, dtype, nested))

@@ -55,14 +55,34 @@ class LPData(NamedTuple):
         return self.A.shape[-1]
 
 
-def matvec(dat: LPData, x: torch.Tensor) -> torch.Tensor:
-    """A @ x per lane: (B, m, n) x (B, n) -> (B, m)."""
+def matvec(dat, x: torch.Tensor) -> torch.Tensor:
+    """A @ x per lane, (B, n) -> (B, m), for any LP data type: a type
+    registered with :func:`register_operator` (the sparse-first
+    ``SparseLPData``) runs its own product, the dense ``LPData`` a batched
+    GEMV on ``dat.A``."""
+    fn = _MATVEC.get(type(dat))
+    if fn is not None:
+        return fn(dat, x)
     return bmv(dat.A, x)
 
 
-def rmatvec(dat: LPData, y: torch.Tensor) -> torch.Tensor:
-    """Aᵀ @ y per lane: (B, m, n) x (B, m) -> (B, n)."""
+def rmatvec(dat, y: torch.Tensor) -> torch.Tensor:
+    """Aᵀ @ y per lane, (B, m) -> (B, n), for any LP data type."""
+    fn = _RMATVEC.get(type(dat))
+    if fn is not None:
+        return fn(dat, y)
     return bmtv(dat.A, y)
+
+
+_MATVEC: dict = {}
+_RMATVEC: dict = {}
+
+
+def register_operator(cls, mv, rmv) -> None:
+    """Register ``mv(dat, x)`` and ``rmv(dat, y)`` as A·x and Aᵀ·y for LP
+    data of type ``cls`` (``tulip_tpu/ipm/data.py:61-84``)."""
+    _MATVEC[cls] = mv
+    _RMATVEC[cls] = rmv
 
 
 def make_lp_data(A, b, c, c0, l, u, *, device="cuda",

@@ -571,7 +571,7 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
     if iteration is None:
         iteration = hsd_iteration
     host_driven = opts.OutputLevel > 0 or opts.TimeLimit != float("inf")
-    if host_driven and dat.A.shape[0] != 1:
+    if host_driven and dat.b.shape[0] != 1:
         raise ValueError("OutputLevel > 0 and a finite TimeLimit apply to "
                          "one LP, not to a batch")
     with full_matmul_precision():
@@ -636,7 +636,7 @@ def _log_row(k: int, s: HSDState, ttot: float, algo: str) -> None:
 
 def hsd_solve(dat: LPData, backend, opts: HSDOptions) -> HSDState:
     """Solve one LP: ``dat`` is a batch of one (see ``make_lp_data``)."""
-    if dat.A.shape[0] != 1:
+    if dat.b.shape[0] != 1:
         raise ValueError(f"hsd_solve takes one LP, got a batch of "
-                         f"{dat.A.shape[0]}; use batched_hsd_solve")
+                         f"{dat.b.shape[0]}; use batched_hsd_solve")
     return solve(backend, opts, dat)

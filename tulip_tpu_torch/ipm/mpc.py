@@ -369,8 +369,8 @@ def init_state_mpc(dat: LPData, backend) -> HSDState:
 
 def mpc_solve(dat: LPData, backend, opts: MPCOptions) -> HSDState:
     """Solve one LP, a batch of one (reference: MPC.jl:218-351)."""
-    if dat.A.shape[0] != 1:
+    if dat.b.shape[0] != 1:
         raise ValueError(f"mpc_solve takes one LP, got a batch of "
-                         f"{dat.A.shape[0]}; use batched_mpc_solve")
+                         f"{dat.b.shape[0]}; use batched_mpc_solve")
     return solve(backend, opts, dat, init=init_state_mpc,
                  iteration=mpc_iteration, algo="MPC")

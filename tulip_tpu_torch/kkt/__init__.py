@@ -23,15 +23,15 @@ from typing import Dict, Type
 from .banded import BandedK1Backend
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
+from .dense_ldl import DenseK2Backend
 from .gram import GramK1Backend
 from .small_k1 import SmallK1Backend
 from .sparse import SparseK1Backend
+from .splitting import SplitK1Backend
 
 _REGISTRY: Dict[str, Type[KKTBackend]] = {}
 
 _PRECISION = "ROADMAP queue 1, item 6 (precision ladder)"
-_K2 = "ROADMAP queue 1, item 7 (kkt/dense_ldl.py)"
-_SPARSE_FIRST = "ROADMAP queue 1, item 8b (the sparse-first data path)"
 _SPARSE_K2 = "ROADMAP queue 1, item 8c (kkt/sparse_ldl.py)"
 _KRYLOV = "ROADMAP queue 1, item 9 (kkt/krylov.py)"
 _DISTRIBUTED = "ROADMAP queue 1, item 10 (distributed Schur path)"
@@ -41,8 +41,7 @@ _DISTRIBUTED = "ROADMAP queue 1, item 10 (distributed Schur path)"
 UNPORTED: Dict[str, str] = {
     "dense-mixed": _PRECISION, "extended": _PRECISION,
     "extended-dd": _PRECISION,
-    "dense-ldl": _K2,
-    "sparse-smw": _SPARSE_FIRST, "sparse-ldl": _SPARSE_K2,
+    "sparse-ldl": _SPARSE_K2,
     **{k: _KRYLOV for k in ("car", "cg", "cr", "craig", "craigmr", "lsmr",
                             "lsqr", "minares", "minres", "minres-qlp",
                             "sqd-minres", "symmlq", "tricg")},
@@ -56,7 +55,8 @@ def register(cls: Type[KKTBackend]) -> Type[KKTBackend]:
 
 
 for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend,
-             BandedK1Backend, SparseK1Backend):
+             BandedK1Backend, SparseK1Backend, SplitK1Backend,
+             DenseK2Backend):
     register(_cls)
 
 
@@ -81,4 +81,5 @@ def make_backend(name=None, system=None, refinement_steps: int = 0,
 
 __all__ = ["KKTBackend", "DenseK1Backend", "DenseK1State", "GramK1Backend",
            "SmallK1Backend", "BandedK1Backend", "SparseK1Backend",
+           "SplitK1Backend", "DenseK2Backend",
            "make_backend", "available_backends", "register"]

@@ -27,7 +27,9 @@ raises ``ValueError``: the reference never vmaps these backends.
 
 ``setup`` reads A on the host. ``host_A``, when given, is that host array
 (the caller's standard-form A in the solve's dtype), so that ``setup``
-copies nothing back from the device.
+copies nothing back from the device. ``setup_data`` on sparse-first data
+(``ipm/sparse_data.py:SparseLPData``) builds the level state from its plan
+and compressed blocks on their device, with no dense A anywhere.
 """
 
 from __future__ import annotations
@@ -332,11 +334,52 @@ class SparseK1Backend(KKTBackend):
 
     # -- host symbolic ----------------------------------------------------
     def setup_data(self, dat):
-        if not hasattr(dat, "A"):
-            raise NotImplementedError(
-                "sparse-first LP data is not ported yet: ROADMAP queue 1, "
-                "item 8b (the sparse-first data path)")
+        """Sparse-first LP data (``ipm/sparse_data.py``) carries the plan
+        and the compressed blocks already: the level state is built from
+        them, with no dense A anywhere. Dense data goes to :meth:`setup`."""
+        from ..ipm.sparse_data import SparseLPData
+        if isinstance(dat, SparseLPData):
+            return self.setup_from_sparse_data(dat)
         return self.setup(dat.A)
+
+    @staticmethod
+    def setup_from_sparse_data(dat) -> SparseK1LevelState:
+        """The level state of a ``SparseLPData``
+        (``tulip_tpu/kkt/sparse.py:311-362``), at its block size.
+
+        Tile t = (i, j) contracts block row i of A against block row j over
+        j's column support. The gather map ``gmap[t, s]`` is the position
+        of column ``sup[j, s]`` inside row i's support, or ``smax`` (a zero
+        pad column) where row i does not touch it; each support row is
+        sorted with its pads (= n) last, so one batched searchsorted over
+        the tiles finds it. ``Rg0`` and ``Oc0`` are then one gather each
+        from ``Apc`` on its device.
+        """
+        Apc = dat.Apc[0]
+        nbr, B, smax = Apc.shape
+        n = dat.c.shape[-1]
+        sup = dat.sup_idx
+        tb, tc = dat.tile_brow, dat.tile_bcol
+        si, sj = sup[tb], sup[tc]                     # (ntiles, smax)
+        pos = torch.searchsorted(si, sj).clamp_max_(smax - 1)
+        hit = (si.gather(1, pos) == sj) & (sj < n)
+        gmap = torch.where(hit, pos, torch.full_like(pos, smax))
+        Apc_ext = torch.cat([Apc, Apc.new_zeros(nbr, B, 1)], dim=2)
+        Rg = Apc_ext[tb].gather(
+            2, gmap[:, None, :].expand(-1, B, -1))   # (ntiles, B, smax)
+        dt, dev = Apc.dtype, Apc.device
+        return SparseK1LevelState(
+            Apc=dat.Apc, sup_idx=sup,
+            Rg0=Rg.transpose(1, 2)[None],     # a view: the update reads Rg
+            Oc0=Apc[tc][None],
+            sup_tile=sj,
+            perm=dat.perm,
+            d=torch.ones(1, n, dtype=dt, device=dev),
+            theta_reg=torch.ones(1, n, dtype=dt, device=dev),
+            regD=torch.ones(1, nbr, B, dtype=dt, device=dev),
+            T=torch.zeros(1, tb.shape[0], B, B, dtype=dt, device=dev),
+            segs=dat.segs,
+        )
 
     def setup(self, A: torch.Tensor):
         A_np = host_matrix(self, A)
@@ -490,6 +533,15 @@ class SparseK1Backend(KKTBackend):
             return self._update_level(state, theta_inv, regP, regD)
         return self._update_column(state, theta_inv, regP, regD)
 
+    def solve_K_blocked(self, st, rhs_b):
+        """(P K Pᵀ) y = rhs for one blocked (nbr, B) right-hand side, on
+        either schedule's factors."""
+        if isinstance(st, SparseK1LevelState):
+            T = st.T[0]
+            u = level_fwd(T, st.segs, rhs_b, inv_factor=self.inv_factor)
+            return level_bwd(T, st.segs, u, inv_factor=self.inv_factor)
+        return self._tile_solve_K(st, rhs_b)
+
     def _tile_solve_K(self, st: SparseK1State, rhs_b):
         """(P K Pᵀ) y = rhs via blocked forward/backward substitution."""
         T = st.T[0]
@@ -513,14 +565,12 @@ class SparseK1Backend(KKTBackend):
         d = st.d[0]
         if isinstance(st, SparseK1LevelState):
             rhs_b = self._blocked(st, xi_p) + self._A_blocked(st, d * xi_d)
-            T = st.T[0]
-            u = level_fwd(T, st.segs, rhs_b, inv_factor=self.inv_factor)
-            y_b = level_bwd(T, st.segs, u, inv_factor=self.inv_factor)
+            y_b = self.solve_K_blocked(st, rhs_b)
             dx = d * (self._AT_blocked(st, y_b) - xi_d)
         else:
             Ap = st.Ap[0]
             rhs_b = self._blocked(st, xi_p) + Ap @ (d * xi_d)
-            y_b = self._tile_solve_K(st, rhs_b)
+            y_b = self.solve_K_blocked(st, rhs_b)
             dx = d * (Ap.reshape(-1, Ap.shape[-1]).T @ y_b.reshape(-1)
                       - xi_d)
         return dx, from_blocked(st.perm, y_b)

@@ -9,18 +9,25 @@ The IPM runs on ``Model(device=...)`` (default ``"cuda"``); ``Parameters``
 is shared with the JAX package byte for byte, so the device is not one
 of its fields. ``IPM.Algorithm`` picks HSD or MPC.
 
-At m >= 2048 with no backend named, the structure probe
-(``_probe_structure``, a verbatim copy) picks ``"banded"`` or ``"sparse"``
-or keeps the dense default, as the reference does; its answer is cached
-on the model under a pattern and norm fingerprint of A. The probe and the
-structured backends' ``setup`` read the standard-form A on the host, cast
-to the solve's dtype, before anything is copied to the device.
+Routing follows the reference's (``tulip_tpu/model.py:134-255``):
+
+- sparse-first: from ``KKT.SparseFirstThreshold`` rows (or with
+  ``KKT.SparseFirst=True``) the standard form goes straight from COO into
+  compressed tiles (``ipm/sparse_data.py``) and solves through
+  ``"sparse"``, or ``"sparse-smw"`` when dense columns were split out; no
+  dense (m, n) array is built, on the host or on the device;
+- else, at m >= 2048 with no backend named, the structure probe
+  (``_probe_structure``, a verbatim copy) picks ``"banded"``, ``"sparse"``
+  or ``"sparse-smw"``, or keeps the dense default; its answer is cached on
+  the model under a pattern and norm fingerprint of A. The probe and the
+  structured backends' ``setup`` read the standard-form A on the host,
+  cast to the solve's dtype, before anything is copied to the device;
+- ``KKT.System="K2"`` takes ``"dense-ldl"`` below m = 2048.
 
 Routes of the reference that are not ported yet raise
-``NotImplementedError`` before any device work, at the branch where the
-reference would leave the dense path: the sparse-first data path, the
-probe's ``"sparse-smw"`` / ``"sparse-ldl"`` answers, the K2 system, and
-the ``extended`` backend below 1e-9 in f64.
+``NotImplementedError`` before any device work, naming their ROADMAP item:
+``"sparse-ldl"`` (the probe's answer for many or dominant dense columns,
+and K2 at m >= 2048) and the ``extended`` backend below 1e-9 in f64.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import torch
 from .ipm.data import make_lp_data, standard_form_arrays
 from .ipm.hsd import HSDOptions, hsd_solve
 from .ipm.mpc import MPCOptions, mpc_solve
+from .ipm.sparse_data import (sparse_lp_data_from_problem,
+                              sparse_pattern_signals)
 from .kkt import make_backend
 from .params import Parameters
 from .presolve import PresolveData, postsolve
@@ -53,7 +62,7 @@ TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
 # backend is named (tulip_tpu/model.py:176-177).
 _PROBE_MIN_ROWS = 2048
 # Backends whose setup reads A on the host (given as ``host_A``).
-_HOST_SETUP = ("banded", "sparse")
+_HOST_SETUP = ("banded", "sparse", "sparse-smw")
 
 
 class Model:
@@ -165,15 +174,21 @@ class Model:
             raise ValueError(f"ArithmeticDtype {params.ArithmeticDtype!r}: "
                              "the port computes in float32 or float64")
         t_ = time.time()
-        A, b, c, c0, l, u, _ = standard_form_arrays(pb_)
-        # The probe and a structured backend's setup read A here, in the
-        # solve's dtype (as the reference reads its device array back).
-        A_host = A.astype(dtype, copy=False)
+        # The sparse-first attempt comes before any dense (m, n) array.
+        dat = self._sparse_first(pb_, dtype)
+        A_host = None
+        if dat is None:
+            A, b, c, c0, l, u, _ = standard_form_arrays(pb_)
+            # The probe and a structured backend's setup read A here, in
+            # the solve's dtype (as the reference reads its device array
+            # back).
+            A_host = A.astype(dtype, copy=False)
         t_route = time.time()
-        backend, ipm_opts = self._route(pb_, dtype, A_host)
+        backend, ipm_opts = self._route(pb_, dtype, A_host, sparse=dat)
         t_route = time.time() - t_route
-        dat = make_lp_data(A_host, b, c, c0, l, u, device=self.device,
-                           dtype=TORCH_DTYPES[dtype])
+        if dat is None:
+            dat = make_lp_data(A_host, b, c, c0, l, u, device=self.device,
+                               dtype=TORCH_DTYPES[dtype])
         n_struct = pb_.nvar
         self.timings["standard_form"] = time.time() - t_ - t_route
 
@@ -218,29 +233,53 @@ class Model:
         self.solve_time = time.time() - t0
         return self.status
 
-    def _route(self, pb_, dtype: np.dtype, A_host: np.ndarray):
-        """(KKT backend, resolved IPM options) for the reduced problem with
-        standard-form constraint matrix ``A_host``, or
+    def _sparse_first(self, pb_, dtype: np.dtype):
+        """The sparse-first ``SparseLPData`` of the reduced problem on the
+        model's device, or None where the reference keeps the dense data
+        (``tulip_tpu/model.py:138-174``): the attempt is forced by
+        ``KKT.SparseFirst=True``, or made from ``SparseFirstThreshold``
+        rows when the O(nnz) pattern signals say that A tiles (density
+        below 0.1, and no dense column or at most 8 whose norms do not
+        dominate); it gives None when the tile plan does."""
+        params = self.params
+        if (params.KKT.SparseFirst is False
+                or params.KKT.System not in (None, "K1")
+                or params.KKT.Backend not in (None, "sparse", "sparse-smw")):
+            return None
+        attempt = params.KKT.SparseFirst is True
+        if not attempt and pb_.ncon >= params.KKT.SparseFirstThreshold:
+            sig = sparse_pattern_signals(pb_)
+            smw_ok = (sig["n_dense_cols"] == 0
+                      or (sig["n_dense_cols"] <= 8
+                          and sig["dense_norm_ratio"] <= 30.0))
+            attempt = sig["density"] < 0.1 and smw_ok
+        if not attempt:
+            return None
+        res = sparse_lp_data_from_problem(pb_, dtype=TORCH_DTYPES[dtype],
+                                          device=self.device)
+        return None if res is None else res[0]
+
+    def _route(self, pb_, dtype: np.dtype, A_host: Optional[np.ndarray],
+               sparse=None):
+        """(KKT backend, resolved IPM options) for the reduced problem, or
         ``NotImplementedError`` where the reference would take a route that
-        is not ported (``tulip_tpu/model.py:134-255``). Host work only."""
+        is not ported (``tulip_tpu/model.py:134-255``). ``sparse`` is the
+        problem's sparse-first data, when :meth:`_sparse_first` gave it;
+        else ``A_host`` is its standard-form constraint matrix. Host work
+        only."""
         params = self.params
         backend_name = params.KKT.Backend
         system = params.KKT.System
-        if (params.KKT.SparseFirst is not False
-                and system in (None, "K1")
-                and backend_name in (None, "sparse", "sparse-smw")
-                and (params.KKT.SparseFirst is True
-                     or pb_.ncon >= params.KKT.SparseFirstThreshold)):
-            raise NotImplementedError(
-                "the sparse-first data path is not ported yet: ROADMAP "
-                "queue 1, item 8b (the sparse-first data path)")
+        if sparse is not None:
+            backend_name = "sparse-smw" if sparse.U.shape[-1] else "sparse"
         if backend_name is None and system in (None, "K1") \
                 and A_host.shape[0] >= _PROBE_MIN_ROWS:
             backend_name = self._probe(A_host)
-        if backend_name is None and system == "K2":
-            raise NotImplementedError(
-                "System='K2' is not ported yet: ROADMAP queue 1, item 7 "
-                "(kkt/dense_ldl.py)")
+        if backend_name is None and system == "K2" \
+                and pb_.ncon >= _PROBE_MIN_ROWS:
+            # The tiled signed Cholesky on K2 (the reference's default
+            # there, model.py:207-214).
+            backend_name = "sparse-ldl"
         if backend_name is None and system in (None, "K1") \
                 and dtype == np.float32 and self.device.type == "cuda":
             # The f32 fast path on the accelerator: the chol-inv kernel
@@ -262,6 +301,11 @@ class Model:
             refinement = {"sparse-smw": 2, "sparse-ldl": 2,
                           "pallas-small": 1, "extended": 2,
                           "extended-dd": 1}.get(backend_name or "", 0)
+            if sparse is not None:
+                # The level engine's inverse-factor solves lose a digit or
+                # two against triangular solves: one sweep on the true
+                # system at least (model.py:250-254).
+                refinement = max(refinement, 1)
         kwargs = {"host_A": A_host} if backend_name in _HOST_SETUP else {}
         backend = make_backend(backend_name, system, refinement, **kwargs)
         if params.IPM.Algorithm.upper() not in ("HSD", "MPC"):
