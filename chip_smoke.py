@@ -80,6 +80,24 @@ Phases, each of which exits non-zero on a failed check:
    ms per iteration beside phase 7's ``"dense"``; the CLI with
    ``--KKTBackend dense-ldl --Presolve 0`` on ``tests/data/*.mps``, with
    the statuses the JAX package gives on the CPU;
+7c. K2 from m = 2048 and the probe's ``"sparse-ldl"``: ``Model.optimize()``
+   with ``KKT_System="K2"`` on ``multiperiod_lp(4096)`` and at its defaults
+   (the probe answers ``"sparse-ldl"`` for 24 dense columns) on
+   ``staircase_lp(2048, dense_cols=24, dense_scale=1.0)``, f64 HSD: the
+   tiled signed block LDLᵀ, with the KKT state the JAX package sets up
+   (``K2_STATE``), OPTIMAL within 1e-7 of HiGHS; iterations, walls, host
+   setup seconds and ms per iteration. No kernel of ours is on this
+   route (torch.linalg and cuBLAS);
+7d. the precision ladder: every double-double primitive and reduction on
+   seeded inputs on the card against the CPU, bit for bit;
+   ``Model.optimize()`` on ``multiperiod_lp(1024)`` in f64 at tolerances
+   of 1e-10 with no backend named (``"extended"``: OPTIMAL within 1e-7
+   of HiGHS, the IPM's relative gap below 1e-10), with
+   ``KKT_Backend="dense-mixed"`` at its defaults (the JAX package's
+   status), ``"extended-dd"`` at 1e-12 on the 20x40 LP of
+   tests/test_doubledouble.py (within 1e-9 of HiGHS) and the CLI's
+   ``--KKTBackend extended-dd`` on ``tests/data/*.mps`` (the JAX
+   package's statuses);
 8. MPC: ``batch_linprog(algorithm="MPC")`` at its defaults on the 64
    problems of phase 5 (statuses as the JAX package gives them on the CPU,
    objectives against HiGHS), ``Model`` with ``IPM_Algorithm="MPC"`` on
@@ -95,14 +113,15 @@ Phases, each of which exits non-zero on a failed check:
    that shape with phase 3's and 3c's bars; the chol-inv shapes must
    include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 (6b, 6c and 7b included) are the main path: every kernel's
+Phases 4-9 (6b, 6c, 7b, 7c and 7d included) are the main path: every kernel's
 launch count is reset just before each of them and read just after. The
 last lines are the card's name and power limit, a JSON list of the
 kernels with their launches, errors, times and bounds, and the JSON result
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
 phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
-``multiperiod_lp(8192)`` and of phase 7b's K2 solve to DIR.
+``multiperiod_lp(8192)``, of phase 7b's K2 solve and of phase 7c's
+``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)`` to DIR.
 """
 
 from __future__ import annotations
@@ -152,6 +171,27 @@ MPC_ENTRY_STATUS = [0] * 62 + [4, 3]
 # infeasible files before any K2 solve).
 K2_CLI_STATUS = {"lp_opt": "OPTIMAL", "lp_inf": "PRIMAL_INFEASIBLE",
                  "lp_ubd": "DUAL_INFEASIBLE", "lp_freevars": "OPTIMAL"}
+# The KKT state the JAX package sets up on the CPU for phase 7c's LPs
+# (its Model with the same parameters): the tiled one, not the
+# "dense-ldl" fall back, on both.
+K2_STATE = {"multiperiod_lp(4096) K2": "SparseK2State",
+            "staircase_lp(2048, dense_cols=24, dense_scale=1.0)":
+                "SparseK2State"}
+# The JAX package on the CPU with KKT_Backend="dense-mixed" (f64, its
+# defaults, no refinement sweep) on multiperiod_lp(1024): (status,
+# iterations). The status is held; the iterations are printed beside the
+# port's, not held: with no sweep the f32 factor's rounding moves the
+# trajectory from about the 7th iteration on (mu ~1e-5), and the two
+# packages then stall near the tolerance for different counts (the port
+# takes 68 on the CPU, from the same presolved LP).
+MIXED_1024 = ("OPTIMAL", 47)
+# The JAX package's statuses for ``--KKTBackend extended-dd`` on
+# tests/data/*.mps on the CPU (presolve on: it decides the two infeasible
+# files), and its status with "extended-dd" at 1e-12 on the 20x40 LP of
+# tests/test_doubledouble.py.
+DD_CLI_STATUS = {"lp_opt": "OPTIMAL", "lp_inf": "PRIMAL_INFEASIBLE",
+                 "lp_ubd": "DUAL_INFEASIBLE", "lp_freevars": "OPTIMAL"}
+DD_TIGHT_STATUS = "OPTIMAL"
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
 # memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
@@ -625,11 +665,12 @@ def phase_gram(device):
 # Phases 6 and 7: one LP
 # ---------------------------------------------------------------------------
 
-def staircase_lp(m, mr=64, nc=96, dense_cols=0, seed=0):
+def staircase_lp(m, mr=64, nc=96, dense_cols=0, seed=0, dense_scale=0.5):
     """Staircase equality LP, a copy of tests/golden_large.py:staircase_lp
     (same seed, same LP; not cyclic) without the JAX package that file
     imports: min c'x s.t. Ax = b, 0 <= x <= u, b = A x0 for an interior
-    x0; ``dense_cols`` adds global linking columns."""
+    x0; ``dense_cols`` adds global linking columns, their entries scaled
+    by ``dense_scale``."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
@@ -646,7 +687,7 @@ def staircase_lp(m, mr=64, nc=96, dense_cols=0, seed=0):
     for k in range(dense_cols):
         I.append(np.arange(m))
         J.append(np.full(m, (7 * k) % n))
-        V.append(rng.standard_normal(m) * 0.5)
+        V.append(rng.standard_normal(m) * dense_scale)
     I, J, V = map(np.concatenate, (I, J, V))
     A = sp.csr_matrix((V, (I, J)), shape=(m, n))
     u = rng.uniform(1, 3, n)
@@ -679,6 +720,31 @@ def scattered_coupling_lp(m=2048, mr=64, nc=96, ncouple=10, seed=4):
     u = rng.uniform(1, 3, n)
     x0 = u * rng.uniform(0.3, 0.7, n)
     return A, np.asarray(A @ x0), rng.standard_normal(n), u
+
+
+def tight_lp(seed=5):
+    """The 20x40 LP of tests/test_doubledouble.py's tight-tolerance test
+    (same seed, same LP) as a sparse staircase_lp-style tuple."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((20, 40))
+    u = rng.uniform(1, 4, 40)
+    b = A @ (u * rng.uniform(0.2, 0.8, 40))
+    return sp.csr_matrix(A), b, rng.standard_normal(40), u
+
+
+def set_tolerances(mod, tol):
+    for k in ("PFeas", "DFeas", "RGap", "IFeas"):
+        setattr(mod.params.IPM, f"Tolerance{k}", tol)
+
+
+def relative_gap(mod):
+    """The IPM's own gap test at its final point: |pobj - dobj| /
+    (1 + |dobj|)."""
+    st = mod.solver_state
+    p, d = float(st.pobj[0]), float(st.dobj[0])
+    return abs(p - d) / (1.0 + abs(d))
 
 
 def highs_staircase(A, b, c, u):
@@ -798,6 +864,75 @@ def sparse_first_symbolic_s(mod, device):
     mod.kkt_backend.setup_data(dat)
     torch.cuda.synchronize()
     return plan_s, tensor_bytes(dat), time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Phase 7d: the double-double primitives, bit for bit
+# ---------------------------------------------------------------------------
+
+def dd_inputs(seed=0):
+    """Seeded f64 inputs of the dd primitives: 257 pairs across 40 decades
+    (odd length: the tree pads), a zero and an overflowing split among
+    them, dd values with non-trivial low words, the cancellation dot of
+    tests/test_doubledouble.py and a matrix spanning 16 decades. No
+    result is subnormal: the error-free transforms hold only above the
+    underflow threshold, and XLA on the CPU flushes subnormals to zero
+    where torch (CPU and CUDA) keeps them."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(257) * 10.0 ** rng.integers(-20, 20, 257)
+    b = rng.standard_normal(257) * 10.0 ** rng.integers(-20, 20, 257)
+    a[:2] = [0.0, 1e300]
+    big = np.where(np.abs(a) >= np.abs(b), a, b)
+    small = np.where(np.abs(a) >= np.abs(b), b, a)
+    u = rng.standard_normal(64)
+    cancel = np.concatenate([u, [1e15, -1e15, 3e14, -3e14]])
+    w = rng.standard_normal(68)
+    w[-4:] = 1.0
+    M = rng.standard_normal((7, 33)) * 10.0 ** rng.integers(-8, 8, (7, 33))
+    return dict(a=a, b=b, big=big, small=small, alo=a * 1e-17,
+                blo=b * 1e-17, cancel=cancel, w=w, M=M,
+                v=rng.standard_normal(33), T3=rng.standard_normal((5, 9, 13)))
+
+
+def dd_results(dd, to):
+    """Every dd primitive and reduction of ``dd`` (a double-double module:
+    the port's, or the JAX package's in the tests) on :func:`dd_inputs`,
+    each input placed by ``to``: name -> tuple of results as numpy."""
+    i = {k: to(v) for k, v in dd_inputs().items()}
+    x, y = (i["a"], i["alo"]), (i["b"], i["blo"])
+    pos = (abs(i["a"]), abs(i["alo"]))
+    out = {
+        "two_sum": dd.two_sum(i["a"], i["b"]),
+        "fast_two_sum": dd.fast_two_sum(i["big"], i["small"]),
+        "split": dd._split(i["a"]),
+        "two_prod": dd.two_prod(i["a"], i["b"]),
+        "add": dd.add(x, y), "sub": dd.sub(x, y), "mul": dd.mul(x, y),
+        "div": dd.div(x, y), "add_f": dd.add_f(x, i["b"]),
+        "mul_f": dd.mul_f(x, i["b"]), "mul_ff": dd.mul_ff(i["a"], i["b"]),
+        "recip": dd.recip(y), "sqrt_": dd.sqrt_(pos),
+        "to_f": (dd.to_f(x),), "sum_": dd.sum_(x),
+        "sum_axis1": dd.sum_((i["T3"], i["T3"] * 1e-17), axis=1),
+        "dot": dd.dot(i["cancel"], i["w"]),
+        "matvec": dd.matvec(i["M"], i["v"]),
+        "ewmul_vec": dd.ewmul_vec(i["a"], i["b"]),
+    }
+    return {k: tuple(np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                     for v in t) for k, t in out.items()}
+
+
+def same_bits(g, w):
+    """Equal bit for bit, where a NaN equals any NaN."""
+    g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+    nan = np.isnan(g)
+    return (g.shape == w.shape and np.array_equal(nan, np.isnan(w))
+            and np.array_equal(g[~nan].view(np.uint64),
+                               w[~nan].view(np.uint64)))
+
+
+def dd_mismatches(got, want):
+    """Names whose results differ in any bit."""
+    return [k for k in want
+            if not all(same_bits(g, w) for g, w in zip(got[k], want[k]))]
 
 
 # ---------------------------------------------------------------------------
@@ -1356,6 +1491,109 @@ def main(argv=None):
                   f"expected {z_want}")
         log(f"  cli --KKTBackend dense-ldl --Presolve 0 {name}.mps: rc {rc}, "
             f"{status}, objective {zc!r}, {rows} iteration-log rows")
+
+    # -- 7c. K2 from m = 2048 and the probe's sparse-ldl, counted ---------
+    from tulip_tpu_torch.ops import doubledouble as tdd
+
+    lp7c = staircase_lp(2048, dense_cols=24, dense_scale=1.0)
+    runs7c = [("multiperiod_lp(4096) K2", big, ref_big, "K2"),
+              ("staircase_lp(2048, dense_cols=24, dense_scale=1.0)", lp7c,
+               highs_staircase(*lp7c), None)]
+    k2runs = {}
+    with count.phase() as n7c:
+        for what, lp, ref, system in runs7c:
+            m7c = staircase_model(lp, device, "float64")
+            m7c.params.KKT.System = system
+            k2runs[what] = (m7c,) + solve_model(m7c)
+    for what, lp, ref, system in runs7c:
+        m7c, st7c, z7c, w7c = k2runs[what]
+        kind = type(m7c.solver_state.kkt).__name__
+        check(m7c.kkt_backend.name == "sparse-ldl", f"{what}: routed to "
+              f"{m7c.kkt_backend.name!r}, not 'sparse-ldl'")
+        check(kind == K2_STATE[what], f"{what}: set up a {kind}; the JAX "
+              f"package sets up a {K2_STATE[what]}")
+        check(st7c.name == "OPTIMAL", f"{what}: status {st7c.name}")
+        err = check_objective(what, z7c, ref, 1e-7)
+        _, setup_s = host_symbolic_s(m7c, device)
+        it = m7c.barrier_iterations
+        log(f"[7c] {what}: sparse-ldl ({kind}, {m7c.kkt_backend.schedule} "
+            f"schedule, block {m7c.kkt_backend.block}), OPTIMAL, objective "
+            f"{z7c!r} vs HiGHS {ref!r} (rel {err:.3e}); {describe(m7c, w7c)}")
+        log(f"  host setup (K2 tile plan, constant tiles, copies to the "
+            f"card), timed again alone: {setup_s:.4f} s (inside 'ipm'); the "
+            f"IPM without it {(m7c.timings['ipm'] - setup_s) / it * 1e3:.3f} "
+            f"ms per iteration")
+    log(f"  launches {n7c}; {card}")
+    if args.profile:
+        m7c, _, _, w7c = k2runs["multiperiod_lp(4096) K2"]
+        profile_solve(lambda: m7c.optimize(),
+                      os.path.join(args.profile, "profile_sparse_ldl.txt"),
+                      w7c)
+
+    # -- 7d. the precision ladder, counted ---------------------------------
+    bits_card = dd_results(tdd, lambda v: torch.as_tensor(v, device=device))
+    bad = dd_mismatches(bits_card, dd_results(tdd, torch.as_tensor))
+    check(not bad, f"dd primitives: the card's bits differ from the CPU's "
+          f"in {bad}")
+    log(f"[7d] dd primitives and reductions ({len(bits_card)}: "
+        f"{', '.join(bits_card)}): the card's results equal the CPU's bit "
+        f"for bit")
+    tight = tight_lp()
+    ref_tight = highs(tight[2], A_eq=tight[0].toarray(), b_eq=tight[1],
+                      bounds=list(zip(np.zeros(40), tight[3]))).fun
+    with count.phase() as n7d:
+        m_ext = staircase_model(small, device, "float64")
+        set_tolerances(m_ext, 1e-10)
+        ext = solve_model(m_ext)
+        m_mix = staircase_model(small, device, "float64", "dense-mixed")
+        mix = solve_model(m_mix)
+        m_dd = staircase_model(tight, device, "float64", "extended-dd")
+        set_tolerances(m_dd, 1e-12)
+        dd_run = solve_model(m_dd)
+        cli_dd = {name: run_cli(os.path.join(ROOT, "tests", "data",
+                                             f"{name}.mps"), device,
+                                "--KKTBackend", "extended-dd")
+                  for name in want}
+    check(m_ext.kkt_backend.name == "extended", f"f64 at 1e-10 routed to "
+          f"{m_ext.kkt_backend.name!r}, not 'extended'")
+    check(ext[0].name == "OPTIMAL", f"extended at 1e-10: {ext[0].name}")
+    err_ext = check_objective("multiperiod_lp(1024) at 1e-10", ext[1],
+                              ref_small, 1e-7)
+    gap = relative_gap(m_ext)
+    check(gap <= 1e-10, f"extended at 1e-10: relative gap {gap:.3e}")
+    log(f"  multiperiod_lp(1024) f64, tolerances 1e-10, no backend named: "
+        f"extended ({m_ext.kkt_backend.refinement_steps} dd sweeps), "
+        f"OPTIMAL, objective {ext[1]!r} vs HiGHS (rel {err_ext:.3e}), "
+        f"relative gap {gap:.3e}; {describe(m_ext, ext[2])}")
+    check(mix[0].name == MIXED_1024[0], f"dense-mixed on "
+          f"multiperiod_lp(1024): {mix[0].name}; the JAX package gives "
+          f"{MIXED_1024[0]}")
+    err_mix = check_objective("multiperiod_lp(1024) dense-mixed", mix[1],
+                              ref_small, 1e-6)
+    log(f"  multiperiod_lp(1024) f64 KKT_Backend='dense-mixed': "
+        f"{mix[0].name} as the JAX package's (which takes "
+        f"{MIXED_1024[1]} iterations on the CPU), objective {mix[1]!r} vs "
+        f"HiGHS (rel {err_mix:.3e}); {describe(m_mix, mix[2])}")
+    check(dd_run[0].name == DD_TIGHT_STATUS,
+          f"extended-dd at 1e-12: {dd_run[0].name}")
+    err_dd = check_objective("20x40 LP, extended-dd at 1e-12", dd_run[1],
+                             ref_tight, 1e-9)
+    log(f"  20x40 LP of tests/test_doubledouble.py, extended-dd at 1e-12: "
+        f"OPTIMAL, objective {dd_run[1]!r} vs HiGHS {ref_tight!r} (rel "
+        f"{err_dd:.3e}), relative gap {relative_gap(m_dd):.3e}; "
+        f"{describe(m_dd, dd_run[2])}")
+    for name, (rc, zc, rows, status) in cli_dd.items():
+        rc_want, z_want = want[name]
+        check(rc == rc_want and status == DD_CLI_STATUS[name],
+              f"cli --KKTBackend extended-dd {name}: rc {rc}, {status}; "
+              f"the JAX package gives rc {rc_want}, {DD_CLI_STATUS[name]}")
+        if z_want is not None:
+            check(zc is not None and abs(zc - z_want) <= 1e-6,
+                  f"cli --KKTBackend extended-dd {name}: objective {zc}, "
+                  f"expected {z_want}")
+        log(f"  cli --KKTBackend extended-dd {name}.mps: rc {rc}, {status}, "
+            f"objective {zc!r}, {rows} iteration-log rows")
+    log(f"  launches {n7d}; {card}")
 
     # -- 8. MPC, counted ---------------------------------------------------
     with count.phase() as n8:

@@ -205,14 +205,21 @@ def test_model_k2_matches_reference(name, presolve):
 
 
 def test_k2_from_2048_rows_raises_naming_8c():
-    """K2 at m >= 2048 is the reference's "sparse-ldl" (item 8c, not
-    ported): it raises before any device work (the model's device is
-    "cuda", which this machine lacks)."""
+    """K2 at m >= 2048 is the reference's "sparse-ldl" (item 8c, ported
+    since): the port takes it where it raised, sets up the tiled
+    ``SparseK2State`` the JAX package sets up for the same A, and runs
+    its iterations."""
+    from tulip_tpu.kkt.sparse_ldl import k2_tile_plan as jplan
+    from tulip_tpu_torch.kkt.sparse_ldl import SparseK2State
+
     A, b, c, u = staircase_lp(2048)
     coo = A.tocoo()
-    mod = tlt.Model(device="cuda")
+    mod = tlt.Model(device="cpu")
     mod.pbdata.load(True, c, 0.0, (coo.row, coo.col, coo.data), b, b,
                     np.zeros(A.shape[1]), u)
     mod.params.KKT.System = "K2"
-    with pytest.raises(NotImplementedError, match="8c"):
-        mod.optimize()
+    mod.params.IPM.IterationsLimit = 2
+    assert mod.optimize() == TerminationStatus.ITERATION_LIMIT
+    assert mod.kkt_backend.name == "sparse-ldl"
+    assert jplan(A.toarray(), 64) is not None
+    assert isinstance(mod.solver_state.kkt, SparseK2State)

@@ -138,17 +138,21 @@ def test_registry_matches_reference(name):
 
 
 def test_registry_names():
-    assert sorted(kkt.available_backends()) == ["banded", "dense",
-                                                "dense-ldl", "dense-pallas",
-                                                "pallas-small", "sparse",
-                                                "sparse-smw"]
+    assert sorted(kkt.available_backends()) == [
+        "banded", "dense", "dense-ldl", "dense-mixed", "dense-pallas",
+        "extended", "extended-dd", "pallas-small", "sparse", "sparse-ldl",
+        "sparse-smw"]
     assert SmallK1Backend.name == "pallas-small"
     assert make_backend().name == "dense"
     assert make_backend(None, "K2").name == "dense-ldl"
     with pytest.raises(ValueError):
         make_backend("dense", "K2")
-    with pytest.raises(NotImplementedError, match="8c"):
-        make_backend("sparse-ldl")
+    assert make_backend("sparse-ldl").name == "sparse-ldl"
+    assert sorted(kkt.UNPORTED) == sorted(
+        ["car", "cg", "cr", "craig", "craigmr", "lsmr", "lsqr", "minares",
+         "minres", "minres-qlp", "sqd-minres", "symmlq", "tricg", "schur"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_backend("cg")
 
 
 def tf32_round(x):

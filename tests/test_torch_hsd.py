@@ -264,3 +264,44 @@ def test_time_limit_matches_jax(limit, status):
     assert int(got.niter[0]) == int(want.niter)
     if status == TerminationStatus.TIME_LIMIT:
         assert int(got.niter[0]) == 1
+
+
+@pytest.mark.parametrize("algo", ["HSD", "MPC"])
+def test_log_fn_sees_the_references_iterations(algo):
+    """``log_fn`` is called after every iteration of ``hsd_solve`` and
+    ``mpc_solve``, as in the reference: on tests/data/lp_opt.mps in f64
+    the per-iteration (niter, pobj, dobj, mu) of both packages have equal
+    length and agree within 1e-10."""
+    from pathlib import Path
+
+    from tulip_tpu.io.mps import read_mps
+    from tulip_tpu.ipm import mpc as jmpc
+    from tulip_tpu_torch.ipm import data as tdata
+    from tulip_tpu_torch.ipm.mpc import MPCOptions, mpc_solve
+
+    pb = read_mps(str(Path(__file__).resolve().parent / "data"
+                      / "lp_opt.mps"))
+
+    def recorder(rows):
+        return lambda s: rows.append(
+            (int(np.asarray(s.niter).reshape(-1)[0]),
+             *(float(np.asarray(v).reshape(-1)[0])
+               for v in (s.pobj, s.dobj, s.pt.mu))))
+
+    want, got = [], []
+    jdat = jdata.lp_data_from_problem(pb)[0]
+    tdat = tdata.lp_data_from_problem(pb, device="cpu")[0]
+    if algo == "HSD":
+        jhsd.hsd_solve(jdat, JDense(), jhsd.HSDOptions(),
+                       log_fn=recorder(want))
+        hsd_solve(tdat, DenseK1Backend(), HSDOptions(),
+                  log_fn=recorder(got))
+    else:
+        jmpc.mpc_solve(jdat, JDense(), jmpc.MPCOptions(),
+                       log_fn=recorder(want))
+        mpc_solve(tdat, DenseK1Backend(), MPCOptions(),
+                  log_fn=recorder(got))
+    assert len(got) == len(want) > 1
+    for g, w in zip(got, want):
+        assert g[0] == w[0]
+        np.testing.assert_allclose(g[1:], w[1:], rtol=1e-10, atol=1e-10)

@@ -603,3 +603,56 @@ def test_dense_ldl_update_and_solve_on_card(cuda):
     for got, want in zip(card[:4], host[:4]):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-10
     assert card[4].tolist() == host[4].tolist() == [True]
+
+
+def test_dd_primitives_on_card_are_the_cpus_bits(cuda):
+    """Double-double is exact only where every product and sum rounds on
+    its own: the card's results of every dd primitive and reduction
+    (chip_smoke.py's phase 7d(a)) equal the CPU's bit for bit, so no
+    multiply and add were fused on the way."""
+    import importlib.util
+
+    from tulip_tpu_torch.ops import doubledouble as dd
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    card = cs.dd_results(dd, lambda v: torch.as_tensor(v, device=cuda))
+    assert cs.dd_mismatches(card, cs.dd_results(dd, torch.as_tensor)) == []
+
+
+@pytest.mark.parametrize("schedule", ["column", "level"])
+def test_sparse_ldl_update_and_solve_on_card(cuda, schedule):
+    """One "sparse-ldl" update + refined solve (tiled K2, both schedules)
+    on the card against the same on the CPU: the same ok, dx and dy within
+    1e-10 relative (f64), and the column schedule's dummy tile zero."""
+    from tulip_tpu_torch.kkt import SparseK2Backend
+
+    rng = np.random.default_rng(6)
+    stages, mr, nc = 12, 16, 24
+    m, n = stages * mr, stages * nc + nc
+    A = np.zeros((m, n))
+    for s in range(stages):
+        A[s * mr:(s + 1) * mr, s * nc:(s + 2) * nc] = \
+            rng.standard_normal((mr, 2 * nc))
+    A[:, 5] = rng.standard_normal(m)
+    A = torch.as_tensor(A)[None]
+    theta_inv = torch.as_tensor(10.0 ** rng.uniform(-4, 4, (1, n)))
+    regP = torch.full((1, n), 1e-8, dtype=torch.float64)
+    regD = torch.full((1, m), 1e-8, dtype=torch.float64)
+    xi_p = torch.as_tensor(rng.standard_normal((1, m)))
+    xi_d = torch.as_tensor(rng.standard_normal((1, n)))
+    be = SparseK2Backend(block=16, refinement_steps=2, schedule=schedule)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        args = [t.to(dev) for t in (theta_inv, regP, regD)]
+        st, ok = be.update(be.setup(A.to(dev)), *args)
+        dx, dy = be.solve(st, xi_p.to(dev), xi_d.to(dev))
+        out.append([t.cpu() for t in (dx, dy, ok, st.T[0, -1])])
+    card, host = out
+    for got, want in zip(card[:2], host[:2]):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-10
+    assert card[2].tolist() == host[2].tolist() == [True]
+    if schedule == "column":
+        assert not card[3].any()

@@ -3,7 +3,8 @@
 ``kkt/banded.py``) against the JAX package's, from the same inputs (numpy
 seeds) on the CPU: the host plans index for index, the level factorization
 and substitutions on the same tile store, and ``update`` + ``solve`` on
-states carried across by ``tulip_tpu_torch.convert``. The reference's
+states carried across by ``tulip_tpu_torch.convert``; the signed (K2)
+level factorization on the same tile store. The reference's
 device functions run under ``jax.jit`` (one compile of the unrolled levels
 instead of one per operation and shape)."""
 
@@ -17,6 +18,7 @@ import tulip_tpu  # noqa: F401
 from tulip_tpu.kkt import banded as jbanded
 from tulip_tpu.kkt import levels as jlevels
 from tulip_tpu.kkt import sparse as jsparse
+from tulip_tpu.kkt import sparse_ldl as jsparse_ldl
 from tulip_tpu_torch.convert import structured_state_from_numpy
 from tulip_tpu_torch.kkt import banded as tbanded
 from tulip_tpu_torch.kkt import levels as tlevels
@@ -365,3 +367,45 @@ def test_sparse_first_data_raises_naming_item_8b():
 
     with pytest.raises(AttributeError):
         tsparse.SparseK1Backend().setup_data(SparseData())
+
+
+def k2_tile_store(A, block, seed=13):
+    """(nodes, level plan, T) of the Jacobi-scaled K2 of A in the order of
+    ``k2_level_plan``: T holds its tiles on the filled pattern (fill tiles
+    zero, padding lanes a unit diagonal), as ``"sparse-ldl"``'s assembly
+    leaves it."""
+    nodes, plan, N = jsparse_ldl.k2_level_plan(A, block)
+    m, n = A.shape
+    rng = np.random.default_rng(seed)
+    d = 10.0 ** rng.uniform(-2, 2, n + m)            # Θ⁻¹ + Rp, Rd
+    K = np.zeros((N, N))
+    K[:n, n:], K[n:, :n] = A.T, A
+    s = 1.0 / np.sqrt(d)
+    K = s[:, None] * K * s[None, :] + np.diag(np.r_[-np.ones(n),
+                                                    np.ones(m)])
+    ext = np.eye(nodes.size)
+    ext[:N, :N] = K
+    T = np.stack([ext[np.ix_(nodes[i], nodes[j])]
+                  for i, j in zip(plan.tile_brow, plan.tile_bcol)])
+    return nodes, plan, T
+
+
+@pytest.mark.parametrize("inv_factor", [True, False], ids=["inv", "trsm"])
+def test_level_factor_signed_matches_reference(inv_factor):
+    """level_factor_signed on the same K2 tile store of a k2_level_plan
+    (lane signs from the node ids): the same ``ok``, and the factor within
+    1e-10·max(1, |ref|) in f64."""
+    from test_sparse_ldl import _staircase_dense_col
+
+    A = _staircase_dense_col(seed=2)
+    nodes, plan, T = k2_tile_store(A, 16)
+    sgn = np.where(nodes < A.shape[1], -1.0, 1.0)
+    want_T, want_ok = jax.jit(lambda T: jlevels.level_factor_signed(
+        T, plan.segs, lambda cols: jnp.asarray(sgn)[cols],
+        inv_factor=inv_factor))(jnp.asarray(T))
+    tsgn = torch.as_tensor(sgn)
+    got_T, got_ok = tlevels.level_factor_signed(
+        torch.as_tensor(T), plan_segs(plan), lambda cols: tsgn[cols],
+        inv_factor=inv_factor)
+    assert bool(want_ok) and bool(got_ok)
+    assert_close(got_T, want_T, "f64")

@@ -113,10 +113,9 @@ def small_staircase(m, seed=0):
 
 
 @pytest.mark.parametrize("params", [
-    {"IPM_TolerancePFeas": 1e-10, "IPM_ToleranceDFeas": 1e-10,
-     "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
-    {"KKT_Backend": "sparse-ldl"},
-], ids=["extended", "unported-backend"])
+    {"KKT_Backend": "cg"},
+    {"KKT_Backend": "schur"},
+], ids=["krylov", "schur"])
 def test_unported_routes_raise_before_device_work(params):
     """device="cuda" on a machine without CUDA: reaching any device work
     would raise something else than NotImplementedError."""
@@ -129,18 +128,26 @@ def test_unported_routes_raise_before_device_work(params):
         m.optimize()
 
 
-@pytest.mark.parametrize("key,value,backend", [
-    ("KKT_SparseFirst", True, "dense"),
-    ("KKT_System", "K2", "dense-ldl"),
-], ids=["sparse-first", "K2"])
-def test_ported_routes_solve(key, value, backend):
-    """The sparse-first path (item 8b) and System="K2" below m = 2048
-    (item 7) solve the file on the CPU; sparse-first falls back to the
-    dense data on a file this small, as the reference does."""
+@pytest.mark.parametrize("params,backend", [
+    ({"KKT_SparseFirst": True}, "dense"),
+    ({"KKT_System": "K2"}, "dense-ldl"),
+    ({"IPM_TolerancePFeas": 1e-10, "IPM_ToleranceDFeas": 1e-10,
+      "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
+     "extended"),
+    ({"KKT_System": "K2", "KKT_Backend": "sparse-ldl"}, "sparse-ldl"),
+], ids=["sparse-first", "K2", "extended", "unported-backend"])
+def test_ported_routes_solve(params, backend):
+    """The sparse-first path (item 8b), System="K2" below m = 2048
+    (item 7), tolerances below 1e-9 in f64 (item 6) and a named
+    "sparse-ldl" (item 8c; here it falls back to "dense-ldl"'s state, the
+    file being too small to tile) solve the file on the CPU; sparse-first
+    falls back to the dense data on a file this small, as the reference
+    does."""
     m = tlt.Model(device="cpu")
     m.pbdata = tlt.read_mps(str(DATA / "lp_freevars.mps"))
     m.params.Presolve.Level = 0
-    tlt.set_parameter(m, key, value)
+    for k, v in params.items():
+        tlt.set_parameter(m, k, v)
     assert m.optimize() == TerminationStatus.OPTIMAL
     assert m.kkt_backend.name == backend
 
@@ -159,25 +166,18 @@ def small_staircase_dense_cols(m, k):
 
 def test_structure_probe_route_raises():
     """At m = 2048 with no backend named the probe routes a staircase to
-    "banded", and one with a dense column to "sparse-smw" (item 8b,
-    ported); its answer for many dense columns ("sparse-ldl", item 8c)
-    raises before any device work (the model's device is "cuda", which
-    this machine lacks)."""
-    for k, name in [(0, "banded"), (1, "sparse-smw")]:
+    "banded", one with a dense column to "sparse-smw" (item 8b) and one
+    with many dense columns to "sparse-ldl" (item 8c, ported since: it
+    raised before)."""
+    for k, name in [(0, "banded"), (1, "sparse-smw"), (12, "sparse-ldl")]:
         m = tlt.Model(device="cpu")
         m.pbdata = (small_staircase_dense_cols(2048, k) if k
                     else small_staircase(2048))
         m.params.IPM.IterationsLimit = 0
         assert m.optimize() == TerminationStatus.ITERATION_LIMIT
         assert m.kkt_backend.name == name
-    m = tlt.Model(device="cuda")
-    m.pbdata = small_staircase_dense_cols(2048, 12)
-    with pytest.raises(NotImplementedError, match="8c"):
-        m.optimize()
     # Naming a backend takes it instead of the probe.
     m.params.KKT.Backend = "dense"
-    m.params.IPM.IterationsLimit = 0
-    m.device = torch.device("cpu")
     assert m.optimize() == TerminationStatus.ITERATION_LIMIT
     assert m.kkt_backend.name == "dense"
 

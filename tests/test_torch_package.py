@@ -28,7 +28,9 @@ def test_import_does_not_pull_in_jax():
             "tulip_tpu_torch.kkt.sparse, tulip_tpu_torch.kkt.levels, "
             "tulip_tpu_torch.kkt.native, tulip_tpu_torch.kkt.sparse_ldl, "
             "tulip_tpu_torch.ipm.sparse_data, tulip_tpu_torch.kkt.splitting, "
-            "tulip_tpu_torch.kkt.dense_ldl; "
+            "tulip_tpu_torch.kkt.dense_ldl, tulip_tpu_torch.kkt.extended, "
+            "tulip_tpu_torch.kkt.mixed, tulip_tpu_torch.kkt.testkit, "
+            "tulip_tpu_torch.ops.doubledouble; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "
@@ -52,6 +54,9 @@ def test_host_module_is_verbatim_copy(rel):
     ("model", "_validate_certificates"),
     ("model", "_probe_structure"),
     ("kkt.sparse_ldl", "dense_threshold"),
+    ("kkt.sparse_ldl", "_k2_pattern_perm"),
+    ("kkt.sparse_ldl", "k2_tile_plan"),
+    ("kkt.sparse_ldl", "k2_level_plan"),
     ("ipm.sparse_data", "standard_form_coo"),
     ("ipm.sparse_data", "sparse_pattern_signals"),
     ("kkt.levels", "_components"),
@@ -78,3 +83,36 @@ def test_host_function_is_verbatim_copy(module, name):
     port = importlib.import_module(f"tulip_tpu_torch.{module}")
     assert inspect.getsource(getattr(port, name)) == \
         inspect.getsource(getattr(ref, name))
+
+
+# Top-level names of the JAX package that the port does not have yet, each
+# with the ROADMAP item that brings it.
+NOT_YET = {"parallel": "ROADMAP queue 1, item 10 (distributed Schur path)"}
+
+
+def test_version_is_the_references():
+    import tulip_tpu
+    import tulip_tpu_torch
+
+    assert tulip_tpu_torch.version() == tulip_tpu.version() == "0.1.0"
+
+
+def test_every_public_top_level_name_is_ported():
+    """Each public name of ``tulip_tpu`` (its ``__all__``, the functions
+    and classes it defines, its subpackages and modules) exists in
+    ``tulip_tpu_torch``, except those of ``NOT_YET``."""
+    import importlib.util
+    import pkgutil
+    import types
+
+    import tulip_tpu
+    import tulip_tpu_torch
+
+    names = set(tulip_tpu.__all__) | {
+        n for n, v in vars(tulip_tpu).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    missing = sorted(n for n in names if not hasattr(tulip_tpu_torch, n))
+    missing += sorted(
+        m.name for m in pkgutil.iter_modules(tulip_tpu.__path__)
+        if importlib.util.find_spec(f"tulip_tpu_torch.{m.name}") is None)
+    assert missing == sorted(NOT_YET)

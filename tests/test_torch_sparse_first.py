@@ -271,17 +271,20 @@ def test_probe_sparse_smw_runs_on_dense_data():
 
 
 def test_many_dense_columns_end_in_the_8c_raise():
-    """More than 8 dense columns: sparse-first is refused, and the probe's
-    ``"sparse-ldl"`` raises naming item 8c before any device work (the
-    model's device is "cuda", which this machine lacks)."""
+    """More than 8 dense columns: sparse-first is refused, and the probe
+    answers ``"sparse-ldl"`` (item 8c, which raised before it was
+    ported), which runs on the dense data."""
     A, b, c, u = staircase_lp(2048, dense_cols=12, dense_scale=1.0)
     coo = A.tocoo()
-    mod = tlt.Model(device="cuda")
+    mod = tlt.Model(device="cpu")
     mod.pbdata.load(True, c, 0.0, (coo.row, coo.col, coo.data), b, b,
                     np.zeros(A.shape[1]), u)
     mod.params.KKT.SparseFirstThreshold = 2048
-    with pytest.raises(NotImplementedError, match="8c"):
-        mod.optimize()
+    mod.params.IPM.IterationsLimit = 0
+    assert mod._sparse_first(mod.pbdata, np.dtype(np.float64)) is None
+    assert mod.optimize() == TerminationStatus.ITERATION_LIMIT
+    assert mod.kkt_backend.name == "sparse-ldl"
+    assert not isinstance(mod.solver_state.kkt, SparseLPData)
 
 
 def test_cli_sparse_first_flag(tmp_path, capsys):

@@ -94,22 +94,18 @@ PROBED = {
 def test_route_follows_the_reference_probe(which):
     """``Model._route`` at m = 2048 with no backend named takes the
     backend that the reference's ``_probe_structure`` returns on the same
-    A, with the reference's refinement sweeps; its "sparse-ldl" answer
-    raises ``NotImplementedError`` naming item 8c."""
+    A, with the reference's refinement sweeps, "sparse-ldl" included
+    (item 8c, which raised before it was ported)."""
     gen, want = PROBED[which]
     mod = load(gen())
     A_host = standard_form_arrays(mod.pbdata)[0]
     assert jmodel._probe_structure(A_host) == want
     dtype = np.dtype(np.float64)
-    if want in ("banded", "sparse", "sparse-smw"):
-        backend, _ = mod._route(mod.pbdata, dtype, A_host)
-        assert backend.name == want
-        assert backend.refinement_steps == (2 if want == "sparse-smw"
-                                            else 0)
-        assert backend.host_A is A_host
-    else:
-        with pytest.raises(NotImplementedError, match="8c"):
-            mod._route(mod.pbdata, dtype, A_host)
+    backend, _ = mod._route(mod.pbdata, dtype, A_host)
+    assert backend.name == want
+    assert backend.refinement_steps == (2 if want in ("sparse-smw",
+                                                      "sparse-ldl") else 0)
+    assert backend.host_A is A_host
 
 
 def test_probe_is_cached_across_resolves(monkeypatch):

@@ -6,17 +6,29 @@ module layout mirrors ``tulip_tpu``'s, so each module has a counterpart
 there. So far it covers:
 
 - one LP: ``Model.optimize()``, ``linprog``, the CLI and the MPS reader,
-  with HSD or MPC on the dense K1 backends ``"dense"``, ``"pallas-small"``
-  and ``"dense-pallas"``;
+  with HSD or MPC, and every route ``Model.optimize()`` takes at its
+  defaults: the dense K1 backends ``"dense"``, ``"pallas-small"`` (f32
+  on the card) and ``"dense-pallas"``; from m = 2048 rows the structure
+  probe's ``"banded"``, ``"sparse"``, ``"sparse-smw"`` and the tiled K2
+  ``"sparse-ldl"``; from ``KKT.SparseFirstThreshold`` rows the
+  sparse-first data path (no dense A) through ``"sparse"`` or
+  ``"sparse-smw"``; ``KKT.System="K2"`` through ``"dense-ldl"`` (below
+  m = 2048) or ``"sparse-ldl"``; and the precision ladder, ``"extended"``
+  (f64 below 1e-9), ``"extended-dd"`` and ``"dense-mixed"``;
 - many LPs: ``batch_linprog`` (HSD or MPC), ``ipm.batched_hsd_solve``,
   ``ipm.batched_mpc_solve`` and the warm-started
   ``ipm.batched_hsd_resolve``.
+
+The Krylov backends and the distributed Schur path are not ported yet
+(naming them raises ``NotImplementedError`` with their ROADMAP item).
 
 Three hand-written CUDA kernels serve the f32 paths on the card:
 ``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``, one or
 ``pack`` instances per thread block), ``csrc/fused_solve.cu`` (its solve,
 with ``SmallK1Backend(fused_solve=True)``) and ``csrc/scaled_gram.cu``
-(K = A·diag(d)·Aᵀ of ``"dense-pallas"``).
+(K = A·diag(d)·Aᵀ of ``"dense-pallas"``). The other routes are
+torch.linalg, cuBLAS and elementwise torch ops, as the reference's are
+XLA library calls.
 
 Host layers (problem data, parameters, statuses, presolve, MPS reading)
 are numpy code copied verbatim from ``tulip_tpu``, so this package runs
@@ -60,3 +72,7 @@ __all__ = [
     "linprog",
     "batch_linprog",
 ]
+
+
+def version() -> str:
+    return __version__

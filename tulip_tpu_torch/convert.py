@@ -1,7 +1,7 @@
 """Carry LP data and solver state across from the JAX package.
 
 The JAX package's pytrees (``LPData``, ``HSDState`` with a ``DenseK1State``
-in its ``kkt`` field, ``SparseLPData`` and the structured KKT states) are
+in its ``kkt`` field, ``SparseLPData`` and the other KKT states) are
 given here as dicts of numpy arrays, nested the same way, keyed by field
 name; batched ones batch-first as ``jax.vmap`` leaves them. This
 module imports no JAX: the caller flattens the pytree to numpy (e.g.
@@ -22,19 +22,26 @@ from .ipm.sparse_data import SparseLPData
 from .kkt.banded import BandedK1State
 from .kkt.dense import DenseK1State
 from .kkt.dense_ldl import DenseK2State
+from .kkt.extended import DDK1State
 from .kkt.levels import LevelSeg
+from .kkt.mixed import MixedK1State
 from .kkt.sparse import SparseK1LevelState, SparseK1State
+from .kkt.sparse_ldl import SparseK2LevelState, SparseK2State
 from .kkt.splitting import SplitK1State
 
 _INT_FIELDS = ("niter", "status", "primal_status", "dual_status")
 _STRUCTURED = {cls.__name__: cls for cls in (
     SparseK1LevelState, SparseK1State, BandedK1State, SplitK1State,
-    DenseK2State)}
+    DenseK2State, SparseK2State, SparseK2LevelState, MixedK1State,
+    DDK1State)}
 # Fields of the structured states and of SparseLPData that index (the
 # plan), not per-LP values.
 _INDEX_FIELDS = ("perm", "sup_idx", "sup_tile", "col_ids", "col_blkrows",
                  "u_a", "u_b", "u_tgt", "rsup_idx", "dense_idx", "tile_brow",
-                 "tile_bcol")
+                 "tile_bcol", "nodes")
+# Fields that keep float32 whatever the solve's dtype (the f32 factor of
+# the mixed-precision backend).
+_F32_FIELDS = ("A32", "Li32")
 
 
 def _tensor(v, device, dtype) -> torch.Tensor:
@@ -115,21 +122,25 @@ def sparse_lp_data_from_numpy(d: Mapping, *, device="cuda",
 
 def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
                                 dtype=torch.float64):
-    """A structured KKT state of this package from the JAX package's,
-    given as the name of its class (``"SparseK1LevelState"``,
-    ``"SparseK1State"``, ``"BandedK1State"``, ``"SplitK1State"`` or
-    ``"DenseK2State"``) and a dict of its fields as numpy arrays. A level
+    """A KKT state of this package from the JAX package's, given as the
+    name of its class (``"SparseK1LevelState"``, ``"SparseK1State"``,
+    ``"BandedK1State"``, ``"SplitK1State"``, ``"DenseK2State"``,
+    ``"SparseK2State"``, ``"SparseK2LevelState"``, ``"MixedK1State"`` or
+    ``"DDK1State"``) and a dict of its fields as numpy arrays. A level
     state's ``d["segs"]`` is a sequence of dicts of ``LevelSeg`` fields: its
     plan's level schedule.
 
     Index fields become int64 tensors with no lane axis; every other field
-    gains the leading lane axis of 1 that this package's states carry. A
+    gains the leading lane axis of 1 that this package's states carry, in
+    ``dtype`` (the f32 factor of a ``MixedK1State`` stays float32). A
     ``SplitK1State``'s ``d["inner"]`` is the dict of its tiled state (a
     level state when it has ``"segs"``), and its ``d["A"]`` is either the
     dense A or the dict of a ``SparseLPData``.
     """
     cls = _STRUCTURED[kind]
-    nested = {}
+    nested = {f: (lambda x: _tensor(np.asarray(x)[None], device,
+                                    torch.float32))
+              for f in _F32_FIELDS if f in cls._fields}
     if cls is SplitK1State:
         def inner(x):
             k = "SparseK1LevelState" if "segs" in x else "SparseK1State"

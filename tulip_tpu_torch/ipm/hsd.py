@@ -554,7 +554,7 @@ def hsd_iteration(backend, opts: HSDOptions, dat: LPData, state: HSDState,
 
 
 def solve(backend, opts, dat: LPData, init=None, iteration=None,
-          algo: str = "HSD") -> HSDState:
+          algo: str = "HSD", log_fn=None) -> HSDState:
     """Start every lane with ``init(dat, backend)`` and run ``iteration``
     until no lane is UNKNOWN. A lane that has terminated keeps its state,
     as a lane of ``lax.while_loop`` under vmap does. Terminates: every lane
@@ -565,15 +565,18 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
     The defaults are the HSD method's (:func:`init_state`, honouring
     ``opts.MehrotraStart``, and :func:`hsd_iteration`); the MPC method and
     the warm restart pass their own, and ``algo`` names the method in the
-    log."""
+    log. ``log_fn``, for one LP, is called with the state after every pass
+    (``tulip_tpu/ipm/hsd.py:633-634``); like ``OutputLevel > 0``, it makes
+    the loop host-driven."""
     if init is None:
         init = partial(init_state, mehrotra=opts.MehrotraStart)
     if iteration is None:
         iteration = hsd_iteration
-    host_driven = opts.OutputLevel > 0 or opts.TimeLimit != float("inf")
+    host_driven = (opts.OutputLevel > 0 or opts.TimeLimit != float("inf")
+                   or log_fn is not None)
     if host_driven and dat.b.shape[0] != 1:
-        raise ValueError("OutputLevel > 0 and a finite TimeLimit apply to "
-                         "one LP, not to a batch")
+        raise ValueError("OutputLevel > 0, a finite TimeLimit and log_fn "
+                         "apply to one LP, not to a batch")
     with full_matmul_precision():
         state = init(dat, backend)
         tstart = time.time()
@@ -593,6 +596,8 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
                 ttot = time.time() - tstart
                 if opts.OutputLevel > 0:
                     _log_row(n_entry, state, ttot, algo)
+                if log_fn is not None:
+                    log_fn(state)
                 if ttot >= opts.TimeLimit and int(state.status) == _UNKNOWN:
                     state = state._replace(status=torch.full_like(
                         state.status, int(TerminationStatus.TIME_LIMIT)))
@@ -634,9 +639,11 @@ def _log_row(k: int, s: HSDState, ttot: float, algo: str) -> None:
           f"{float(s.pt.mu):7.1e}  {ttot:.2f}")
 
 
-def hsd_solve(dat: LPData, backend, opts: HSDOptions) -> HSDState:
-    """Solve one LP: ``dat`` is a batch of one (see ``make_lp_data``)."""
+def hsd_solve(dat: LPData, backend, opts: HSDOptions,
+              log_fn=None) -> HSDState:
+    """Solve one LP: ``dat`` is a batch of one (see ``make_lp_data``).
+    ``log_fn(state)`` is called after every iteration."""
     if dat.b.shape[0] != 1:
         raise ValueError(f"hsd_solve takes one LP, got a batch of "
                          f"{dat.b.shape[0]}; use batched_hsd_solve")
-    return solve(backend, opts, dat)
+    return solve(backend, opts, dat, log_fn=log_fn)

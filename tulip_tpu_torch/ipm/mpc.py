@@ -367,10 +367,12 @@ def init_state_mpc(dat: LPData, backend) -> HSDState:
     return _mpc_residual_state(dat, state)
 
 
-def mpc_solve(dat: LPData, backend, opts: MPCOptions) -> HSDState:
-    """Solve one LP, a batch of one (reference: MPC.jl:218-351)."""
+def mpc_solve(dat: LPData, backend, opts: MPCOptions,
+              log_fn=None) -> HSDState:
+    """Solve one LP, a batch of one (reference: MPC.jl:218-351).
+    ``log_fn(state)`` is called after every iteration."""
     if dat.b.shape[0] != 1:
         raise ValueError(f"mpc_solve takes one LP, got a batch of "
                          f"{dat.b.shape[0]}; use batched_mpc_solve")
     return solve(backend, opts, dat, init=init_state_mpc,
-                 iteration=mpc_iteration, algo="MPC")
+                 iteration=mpc_iteration, algo="MPC", log_fn=log_fn)

@@ -24,24 +24,22 @@ from .banded import BandedK1Backend
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
 from .dense_ldl import DenseK2Backend
+from .extended import ExtendedDDK1Backend, ExtendedK1Backend
 from .gram import GramK1Backend
+from .mixed import MixedK1Backend
 from .small_k1 import SmallK1Backend
 from .sparse import SparseK1Backend
+from .sparse_ldl import SparseK2Backend
 from .splitting import SplitK1Backend
 
 _REGISTRY: Dict[str, Type[KKTBackend]] = {}
 
-_PRECISION = "ROADMAP queue 1, item 6 (precision ladder)"
-_SPARSE_K2 = "ROADMAP queue 1, item 8c (kkt/sparse_ldl.py)"
 _KRYLOV = "ROADMAP queue 1, item 9 (kkt/krylov.py)"
 _DISTRIBUTED = "ROADMAP queue 1, item 10 (distributed Schur path)"
 
 # The reference's other registered backends, each with the ROADMAP item
 # that will port it.
 UNPORTED: Dict[str, str] = {
-    "dense-mixed": _PRECISION, "extended": _PRECISION,
-    "extended-dd": _PRECISION,
-    "sparse-ldl": _SPARSE_K2,
     **{k: _KRYLOV for k in ("car", "cg", "cr", "craig", "craigmr", "lsmr",
                             "lsqr", "minares", "minres", "minres-qlp",
                             "sqd-minres", "symmlq", "tricg")},
@@ -56,7 +54,8 @@ def register(cls: Type[KKTBackend]) -> Type[KKTBackend]:
 
 for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend,
              BandedK1Backend, SparseK1Backend, SplitK1Backend,
-             DenseK2Backend):
+             DenseK2Backend, SparseK2Backend, MixedK1Backend,
+             ExtendedK1Backend, ExtendedDDK1Backend):
     register(_cls)
 
 
@@ -81,5 +80,6 @@ def make_backend(name=None, system=None, refinement_steps: int = 0,
 
 __all__ = ["KKTBackend", "DenseK1Backend", "DenseK1State", "GramK1Backend",
            "SmallK1Backend", "BandedK1Backend", "SparseK1Backend",
-           "SplitK1Backend", "DenseK2Backend",
+           "SplitK1Backend", "DenseK2Backend", "SparseK2Backend",
+           "MixedK1Backend", "ExtendedK1Backend", "ExtendedDDK1Backend",
            "make_backend", "available_backends", "register"]

@@ -36,6 +36,10 @@ class KKTBackend:
 
     name = "abstract"
     systems: Tuple[str, ...] = ()
+    # Gate of the conformance kit's late-IPM ill-conditioning sweeps
+    # (kkt/testkit.py): the largest scale-aware relative residual on the
+    # 16-decade θ sweep. None opts out (matrix-free backends).
+    sweep_resid_atol = 1e-6
 
     # -- introspection (reference: src/KKT/KKT.jl:103-121) ---------------
     def arithmetic_label(self, dtype: torch.dtype) -> str:

@@ -17,8 +17,9 @@ The device functions take one LP's tile store T (ntiles, B, B):
 - ``.at[].add`` becomes ``index_add_``, which accumulates repeated
   targets (on CUDA through atomics, in an order that may change from
   run to run).
-- ``level_factor_signed`` (the K2 factorization) is not ported yet: it
-  comes with ``"sparse-ldl"`` (ROADMAP queue 1, item 8c).
+- ``level_factor_signed`` is the K2 factorization of ``"sparse-ldl"``'s
+  level schedule; :func:`signed_pivot` is its per-tile step, which the
+  column schedule (``kkt/sparse_ldl.py``) shares.
 """
 
 from __future__ import annotations
@@ -298,6 +299,69 @@ def level_factor_spd(T: torch.Tensor, segs: Sequence[LevelSeg],
         T.index_add_(0, seg.u_tgt,
                      Lsub[seg.u_a] @ Lsub[seg.u_b].transpose(-1, -2),
                      alpha=-1)
+        ok = ok & ok_l
+    return T, ok
+
+
+def signed_pivot(D: torch.Tensor, s: torch.Tensor, inv_factor: bool):
+    """Signed factor of quasi-definite pivot tiles D (..., B, B) whose
+    lanes have signs ``s`` (..., B), x lanes (-1) first: D = U diag(s) Uᵀ
+    with U = [[Lp, 0], [-W, Ls]] lower triangular, from two masked SPD
+    Choleskys (P = -D_xx = Lp Lpᵀ, Q + W Wᵀ = Ls Lsᵀ with W = D_yx Lp⁻ᵀ)
+    and one triangular solve (``tulip_tpu/kkt/sparse_ldl.py:506-534``).
+
+    Returns (U, or U⁻¹ when ``inv_factor``; ok), ``ok`` a 0-d bool tensor
+    over the whole batch; where it is false every tile of the result is
+    the identity, as the reference's ``jnp.where(ok, U, eye)``.
+    """
+    eye = _eye(D)
+    mx = (s < 0).to(D.dtype)
+    my = 1.0 - mx
+    xx = mx.unsqueeze(-1) * mx.unsqueeze(-2)
+    yy = my.unsqueeze(-1) * my.unsqueeze(-2)
+    Lp, ok_p = cholesky_or_identity((-D) * xx + eye * my.unsqueeze(-2))
+    W = solve_right_lower_t(Lp, D * (my.unsqueeze(-1) * mx.unsqueeze(-2)))
+    Ls, ok_s = cholesky_or_identity(D * yy + W @ W.transpose(-1, -2)
+                                    + eye * mx.unsqueeze(-2))
+    U = Lp * xx - W + Ls * yy
+    ok = ok_p & ok_s & torch.isfinite(U).all()
+    U = torch.where(ok, U, eye)
+    if inv_factor:
+        U = torch.linalg.solve_triangular(U, eye.expand_as(U), upper=False)
+        ok = ok & torch.isfinite(U).all()
+        U = torch.where(ok, U, eye)
+    return U, ok
+
+
+def level_factor_signed(T: torch.Tensor, segs: Sequence[LevelSeg],
+                        sgn_cols_fn, inv_factor: bool = True):
+    """Level-scheduled signed blocked Cholesky K2 = 𝓛 Σ 𝓛ᵀ of one tile
+    store T (ntiles, B, B) (``tulip_tpu/kkt/levels.py:284-330``; the
+    per-tile math is :func:`signed_pivot`). ``sgn_cols_fn(cols)`` returns
+    the (w, B) lane signs of the level's pivot tiles.
+
+    After the pass, diagonal tiles hold U_j (or U_j⁻¹ when ``inv_factor``)
+    and subdiagonal tiles the L blocks L_ij = T_ij U_j⁻ᵀ Σ_j. Returns
+    (T, ok), ``ok`` a 0-d bool tensor: a level whose pivots do not all
+    factor stores identities and zero blocks. T is not modified.
+    """
+    T = T.clone()
+    ok = torch.ones((), dtype=torch.bool, device=T.device)
+    for seg in segs:
+        s = sgn_cols_fn(seg.cols)                    # (w, B)
+        U, ok_l = signed_pivot(T[seg.cols], s, inv_factor)
+        Sub = T[seg.sub_ids]                         # (S, B, B)
+        if inv_factor:
+            Y = Sub @ U[seg.sub_owner].transpose(-1, -2)
+        else:
+            Y = solve_right_lower_t(U[seg.sub_owner], Sub)
+        so = s[seg.sub_owner].unsqueeze(-2)          # (S, 1, B) col signs
+        Lsub = torch.where(ok_l, Y * so, torch.zeros_like(Y))
+        T[seg.cols] = U
+        T[seg.sub_ids] = Lsub
+        T.index_add_(0, seg.u_tgt,
+                     (Lsub[seg.u_a] * so[seg.u_a])
+                     @ Lsub[seg.u_b].transpose(-1, -2), alpha=-1)
         ok = ok & ok_l
     return T, ok
 

@@ -9,7 +9,8 @@ The IPM runs on ``Model(device=...)`` (default ``"cuda"``); ``Parameters``
 is shared with the JAX package byte for byte, so the device is not one
 of its fields. ``IPM.Algorithm`` picks HSD or MPC.
 
-Routing follows the reference's (``tulip_tpu/model.py:134-255``):
+Routing follows the reference's (``tulip_tpu/model.py:134-255``), and
+every route it takes at its defaults is ported:
 
 - sparse-first: from ``KKT.SparseFirstThreshold`` rows (or with
   ``KKT.SparseFirst=True``) the standard form goes straight from COO into
@@ -17,17 +18,22 @@ Routing follows the reference's (``tulip_tpu/model.py:134-255``):
   ``"sparse"``, or ``"sparse-smw"`` when dense columns were split out; no
   dense (m, n) array is built, on the host or on the device;
 - else, at m >= 2048 with no backend named, the structure probe
-  (``_probe_structure``, a verbatim copy) picks ``"banded"``, ``"sparse"``
-  or ``"sparse-smw"``, or keeps the dense default; its answer is cached on
+  (``_probe_structure``, a verbatim copy) picks ``"banded"``, ``"sparse"``,
+  ``"sparse-smw"`` or, for many or dominant dense columns, the tiled K2
+  ``"sparse-ldl"``, or keeps the dense default; its answer is cached on
   the model under a pattern and norm fingerprint of A. The probe and the
   structured backends' ``setup`` read the standard-form A on the host,
   cast to the solve's dtype, before anything is copied to the device;
-- ``KKT.System="K2"`` takes ``"dense-ldl"`` below m = 2048.
+- ``KKT.System="K2"`` takes ``"dense-ldl"`` below m = 2048 and
+  ``"sparse-ldl"`` from there (which falls back to ``"dense-ldl"`` where
+  tiling gives no advantage);
+- f32 on the card with no backend named takes ``"pallas-small"`` (the
+  chol-inv kernel); f64 with a tolerance below 1e-9 takes ``"extended"``
+  (double-double refinement).
 
-Routes of the reference that are not ported yet raise
-``NotImplementedError`` before any device work, naming their ROADMAP item:
-``"sparse-ldl"`` (the probe's answer for many or dominant dense columns,
-and K2 at m >= 2048) and the ``extended`` backend below 1e-9 in f64.
+Named backends the reference registers but this package has not ported
+(the Krylov family, ``"schur"``) raise ``NotImplementedError`` before any
+device work, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
 # backend is named (tulip_tpu/model.py:176-177).
 _PROBE_MIN_ROWS = 2048
 # Backends whose setup reads A on the host (given as ``host_A``).
-_HOST_SETUP = ("banded", "sparse", "sparse-smw")
+_HOST_SETUP = ("banded", "sparse", "sparse-smw", "sparse-ldl")
 
 
 class Model:
@@ -261,11 +267,10 @@ class Model:
 
     def _route(self, pb_, dtype: np.dtype, A_host: Optional[np.ndarray],
                sparse=None):
-        """(KKT backend, resolved IPM options) for the reduced problem, or
-        ``NotImplementedError`` where the reference would take a route that
-        is not ported (``tulip_tpu/model.py:134-255``). ``sparse`` is the
-        problem's sparse-first data, when :meth:`_sparse_first` gave it;
-        else ``A_host`` is its standard-form constraint matrix. Host work
+        """(KKT backend, resolved IPM options) for the reduced problem
+        (``tulip_tpu/model.py:134-255``). ``sparse`` is the problem's
+        sparse-first data, when :meth:`_sparse_first` gave it; else
+        ``A_host`` is its standard-form constraint matrix. Host work
         only."""
         params = self.params
         backend_name = params.KKT.Backend
@@ -291,10 +296,9 @@ class Model:
                 and min(ipm_opts.TolerancePFeas, ipm_opts.ToleranceDFeas,
                         ipm_opts.ToleranceRGap,
                         ipm_opts.ToleranceIFeas) < 1e-9:
-            raise NotImplementedError(
-                "tolerances below 1e-9 in float64 take the 'extended' "
-                "backend, which is not ported yet: ROADMAP queue 1, item 6 "
-                "(precision ladder)")
+            # Tolerances beyond f64's sqrt(eps): double-double-residual
+            # refinement (model.py:223-231).
+            backend_name = "extended"
         refinement = params.KKT.RefinementSteps
         if refinement is None:
             # Per-backend defaults, as in the reference (model.py:232-254).
