@@ -107,21 +107,52 @@ Phases, each of which exits non-zero on a failed check:
    (seeded), re-solved by ``batched_hsd_resolve`` from phase 4b's final
    state through the fused backend with the packed chol-inv launch (4
    instances per block), against a cold solve;
+11. after phase 9, the rest of the KKT backends:
+11a. Krylov: ``Model.optimize()`` (f64, presolve on) on the transportation
+   LP of tests/golden_lps.py through each of the 13 Krylov backends at
+   tests/test_krylov_golden.py's tolerances (``KRYLOV_TOL``; minares
+   stopped at ``MINARES_ITERATIONS``): the JAX package's statuses
+   (``KRYLOV_STATUS``) and objectives within each case's rtol of HiGHS
+   (tricg and minares: the status only); ``multiperiod_lp(256)`` through
+   ``"cg"`` and ``multiperiod_lp(128)`` through ``"sqd-minres"``
+   (``KRYLOV_E2E``), each beside ``"dense"``, OPTIMAL within 1e-6 of
+   HiGHS, with iterations, walls, ``Model.timings``, Krylov trips and
+   host syncs a solve; one solve of cg, sqd-minres and lsmr on
+   ``multiperiod_lp(4096)``'s A (Θ⁻¹ over four decades, Rd = 1e-8):
+   trips, ms a trip, host syncs, with the default test for a stop and
+   with one on every trip, and the relative residual of the system each
+   iterates on (K1; sqd-minres's SQD-scaled K2) within 10·rtol;
+11b. ``explicit_minv``: the slice of phase 4 through
+   ``SmallK1Backend(explicit_minv=True)`` (K⁻¹ from the chol-inv kernel's
+   L⁻¹) with one refinement sweep (every lane OPTIMAL but at most
+   ``ONE_SWEEP_TAIL_MAX`` at ITERATION_LIMIT, a tail that the rounding
+   decides in both packages; the OPTIMAL ones against HiGHS) and with two
+   (phase 4's checks), mean iterations beside phase 4's,
+   ``hsd_solve`` with ``DenseK1Backend(explicit_minv=True)`` on
+   ``multiperiod_lp(1024)`` in f64 (within 1e-6 of HiGHS), and
+   ``SmallK1Backend(explicit_minv=True, fused_solve=True)`` refused;
+11c. ``matmul_precision``: ``DenseK1Backend(inv_factor=True,
+   refinement_steps=2)`` with ``"highest"`` and ``"high"`` (three TF32
+   products of a split) on benchmarks/bench_sparse.py's f32
+   staircase(8192): update plus one solve, median of 5 in turns, each
+   relative augmented residual (``"high"``'s within 10x of
+   ``"highest"``'s), torch's flag restored after each;
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
-   4-9 gave the fused solve and every (B, m, instances per block) they gave
-   the chol-inv kernel, held against the plain version on seeded inputs of
-   that shape with phase 3's and 3c's bars; the chol-inv shapes must
-   include the blocked path's (1, 1024) and an m = 256 bucket.
+   4-9 and 11 gave the fused solve and every (B, m, instances per block)
+   they gave the chol-inv kernel, held against the plain version on seeded
+   inputs of that shape with phase 3's and 3c's bars; the chol-inv shapes
+   must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 (6b, 6c, 7b, 7c and 7d included) are the main path: every kernel's
-launch count is reset just before each of them and read just after. The
-last lines are the card's name and power limit, a JSON list of the
-kernels with their launches, errors, times and bounds, and the JSON result
-``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
+Phases 4-9 and 11 (6b, 6c, 7b, 7c and 7d included) are the main path: every
+kernel's launch count is reset just before each of them and read just
+after. The last lines are the card's name and power limit, a JSON list of
+the kernels with their launches, errors, times and bounds, and the JSON
+result ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
 phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
-``multiperiod_lp(8192)``, of phase 7b's K2 solve and of phase 7c's
-``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)`` to DIR.
+``multiperiod_lp(8192)``, of phase 7b's K2 solve, of phase 7c's
+``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)`` and of phase 11a's
+cg solve at m = 4096 to DIR.
 """
 
 from __future__ import annotations
@@ -141,6 +172,12 @@ import torch
 
 TOL = 3e-4
 OPTIMAL = 2  # TerminationStatus.OPTIMAL
+ITERATION_LIMIT = 6
+# Phase 11b's one-sweep explicit_minv run on the 2048 slice LPs: lanes that
+# may end at the iteration limit. The JAX package on the CPU leaves none of
+# these 2048 and the port on the CPU one; the flip of a single lane with
+# the rounding is shown in both by tests/test_torch_dense_options.py.
+ONE_SWEEP_TAIL_MAX = 4
 KERNEL_SHAPES = [(1, 8), (7, 48), (2048, 48), (2048, 64), (64, 100),
                  (8, 224), (1, 225), (16, 256), (3, 300), (2, 512),
                  (1, 1000), (4, 1024)]
@@ -192,6 +229,35 @@ MIXED_1024 = ("OPTIMAL", 47)
 DD_CLI_STATUS = {"lp_opt": "OPTIMAL", "lp_inf": "PRIMAL_INFEASIBLE",
                  "lp_ubd": "DUAL_INFEASIBLE", "lp_freevars": "OPTIMAL"}
 DD_TIGHT_STATUS = "OPTIMAL"
+# The JAX package's statuses on the CPU with each Krylov backend on the
+# transportation LP of tests/golden_lps.py (f64, presolve on), at the
+# tolerances of KRYLOV_CASES (the defaults for tricg and minares).
+KRYLOV_STATUS = {**dict.fromkeys(
+    ["cg", "cr", "car", "minres", "symmlq", "minres-qlp", "sqd-minres",
+     "lsqr", "lsmr", "craig", "craigmr", "tricg"], "OPTIMAL"),
+    "minares": "ITERATION_LIMIT"}
+# tests/test_krylov_golden.py's KRYLOV_CASES: (IPM tolerance or None for
+# the defaults, objective rtol against HiGHS); tricg and minares (None)
+# are held to the status only.
+KRYLOV_TOL = {"cg": (None, 1e-7), "cr": (None, 1e-7), "car": (None, 1e-7),
+              "minres": (1e-6, 1e-5), "symmlq": (1e-4, 1e-3),
+              "minres-qlp": (None, 1e-7), "sqd-minres": (None, 1e-7),
+              "lsqr": (None, 1e-7), "lsmr": (None, 1e-7),
+              "craig": (None, 1e-7), "craigmr": (None, 1e-7),
+              "tricg": (None, None), "minares": (None, None)}
+# IPM iterations phase 11a gives minares: every one of its solves runs its
+# 620 trips to maxiter, and the JAX package stops it at ITERATION_LIMIT at
+# any limit (100 by default, ~120,000 trips; 10 here).
+MINARES_ITERATIONS = 10
+# Phase 11a's end-to-end runs, each beside "dense" on the same LP:
+# (backend, m of multiperiod_lp). sqd-minres's late solves run ~2.8x cg's
+# trips at ~2.7x its time a trip (this phase on an NVIDIA H100 80GB HBM3 at
+# 700 W: its IPM took 191.6 s at m = 256, against cg's 24.9 s), so it runs
+# at m = 128.
+KRYLOV_E2E = [("cg", 256), ("sqd-minres", 128)]
+# Phase 11a's one solve at full width: Θ⁻¹ over four decades, Rp = Rd.
+KRYLOV_ONE_SOLVE = ("cg", "sqd-minres", "lsmr")
+KRYLOV_REG = 1e-8
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
 # memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
@@ -936,6 +1002,397 @@ def dd_mismatches(got, want):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the Krylov family, explicit_minv, matmul_precision
+# ---------------------------------------------------------------------------
+
+def transportation(ns=6, nd=9, seed=0):
+    """Balanced transportation LP, a copy of
+    tests/golden_lps.py:transportation (same seed, same LP) on the port's
+    ProblemData: (the problem, its HiGHS optimum)."""
+    from tulip_tpu_torch.problem import INF, ProblemData
+
+    rng = np.random.default_rng(seed)
+    s = rng.integers(10, 50, ns).astype(float)
+    d = rng.random(nd)
+    d = np.floor(d / d.sum() * s.sum())
+    d[-1] += s.sum() - d.sum()
+    C = rng.uniform(1, 20, (ns, nd))
+
+    pb = ProblemData(f"transport-{ns}x{nd}")
+    idx = {}
+    for i in range(ns):
+        for j in range(nd):
+            idx[i, j] = pb.add_variable((), (), C[i, j], 0.0, INF,
+                                        f"x{i}_{j}")
+    for i in range(ns):
+        cols = [idx[i, j] for j in range(nd)]
+        pb.add_constraint(cols, [1.0] * nd, s[i], s[i], f"supply{i}")
+    for j in range(nd):
+        cols = [idx[i, j] for i in range(ns)]
+        pb.add_constraint(cols, [1.0] * ns, d[j], d[j], f"demand{j}")
+    A_eq = np.vstack([np.kron(np.eye(ns), np.ones(nd)),
+                      np.kron(np.ones(ns), np.eye(nd))])
+    r = highs(C.ravel(), A_eq=A_eq, b_eq=np.concatenate([s, d]))
+    check(r.status == 0, f"HiGHS failed on the transportation LP: "
+          f"{r.message}")
+    return pb, float(r.fun)
+
+
+class KrylovTrips:
+    """Trips and host syncs of the Krylov loops run inside :meth:`count`:
+    wraps ``kkt.krylov``'s loop (one call a solve) and its host test, as
+    the kernel wrappers' counts count launches."""
+
+    def __init__(self):
+        self.trips = []
+        self.syncs = 0
+
+    @contextlib.contextmanager
+    def count(self):
+        from tulip_tpu_torch.kkt import krylov
+
+        loop, any_ = krylov._masked_while, krylov._any
+
+        def counted(cond, body, carry, maxiter):
+            self.trips.append(0)
+
+            def body_(c, k):
+                self.trips[-1] += 1
+                return body(c, k)
+            return loop(cond, body_, carry, maxiter)
+
+        def synced(active):
+            self.syncs += 1
+            return any_(active)
+
+        krylov._masked_while, krylov._any = counted, synced
+        try:
+            yield self
+        finally:
+            krylov._masked_while, krylov._any = loop, any_
+
+    def describe(self):
+        n = max(len(self.trips), 1)
+        return (f"{len(self.trips)} solves, trips a solve mean "
+                f"{sum(self.trips) / n:.1f} max {max(self.trips, default=0)}, "
+                f"host syncs a solve {self.syncs / n:.2f}")
+
+
+def krylov_model(pb, device, name):
+    """A Model holding ``pb`` (f64, presolve on) through Krylov backend
+    ``name`` at its KRYLOV_TOL tolerance."""
+    import warnings
+
+    from tulip_tpu_torch import Model
+
+    I, J, V = pb.to_coo()
+    mod = Model(device=device)
+    mod.pbdata.load(pb.objsense, pb.obj, pb.obj0, (I, J, V), pb.lcon,
+                    pb.ucon, pb.lvar, pb.uvar, name=pb.name)
+    mod.params.KKT.Backend = name
+    tol = KRYLOV_TOL[name][0]
+    if tol is not None:
+        set_tolerances(mod, tol)
+    if name == "minares":
+        mod.params.IPM.IterationsLimit = MINARES_ITERATIONS
+    with warnings.catch_warnings():
+        # make_backend warns that tricg and minares are experimental.
+        warnings.simplefilter("ignore")
+        return mod, solve_model(mod)
+
+
+def k1_state(A, seed, device):
+    """A seeded late-IPM K1 state on A (1, m, n) f64: Θ⁻¹ over four
+    decades, Rp = Rd = KRYLOV_REG, random right-hand sides."""
+    rng = np.random.default_rng(seed)
+    m, n = A.shape[-2:]
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=device)[None]
+
+    return (t(10.0 ** rng.uniform(-2, 2, n)), t(np.full(n, KRYLOV_REG)),
+            t(np.full(m, KRYLOV_REG)), t(rng.standard_normal(m)),
+            t(rng.standard_normal(n)))
+
+
+def krylov_residuals(A, theta_inv, regP, regD, xi_p, xi_d, dx, dy):
+    """(relative K1 residual of dy, relative residual of the SQD-scaled K2
+    system, which sqd-minres iterates on)."""
+    from tulip_tpu_torch.kkt.base import bmtv, bmv
+
+    treg = theta_inv + regP
+    d = 1.0 / treg
+    rhs = xi_p + bmv(A, d * xi_d)
+    k1 = rhs - (bmv(A, d * bmtv(A, dy)) + regD * dy)
+    rd = xi_d - (-treg * dx + bmtv(A, dy))
+    rp = xi_p - (bmv(A, dx) + regD * dy)
+    f, e = treg.sqrt(), regD.sqrt()
+    k2 = (torch.cat([rd / f, rp / e], -1).norm()
+          / torch.cat([xi_d / f, xi_p / e], -1).norm())
+    return (k1.norm() / rhs.norm()).item(), k2.item()
+
+
+def bench_staircase(m):
+    """The dense f32 staircase of benchmarks/bench_sparse.py:staircase
+    (same seed, same matrix; not cyclic), copied since that file imports
+    JAX: bench.py:156-185's matmul-precision point at m = 8192."""
+    rng = np.random.default_rng(0)
+    mr, nc = 64, 96
+    stages = m // mr
+    A = np.zeros((m, stages * nc + nc), np.float32)
+    for s in range(stages):
+        for t in (s, s + 1):
+            A[s * mr:(s + 1) * mr, t * nc:(t + 1) * nc] = \
+                rng.standard_normal((mr, nc)).astype(np.float32)
+    return A
+
+
+def augmented_residual(A, theta_inv, regP, regD, xi_p, xi_d, dx, dy):
+    """The conformance kit's scale-aware relative residual of the augmented
+    system (kkt/testkit.py), in f64."""
+    from tulip_tpu_torch.kkt.base import bmtv, bmv
+
+    A, theta_inv, regP, regD, xi_p, xi_d, dx, dy = (
+        t.double() for t in (A, theta_inv, regP, regD, xi_p, xi_d, dx, dy))
+    treg = theta_inv + regP
+    rd = xi_d - (-treg * dx + bmtv(A, dy))
+    rp = xi_p - (bmv(A, dx) + regD * dy)
+
+    def mx(v):
+        return v.abs().max().item()
+
+    scale_d = mx(xi_d) + mx(treg * dx) + mx(bmtv(A, dy))
+    scale_p = mx(xi_p) + mx(bmv(A, dx)) + mx(regD * dy)
+    return max(mx(rd) / max(scale_d, 1.0), mx(rp) / max(scale_p, 1.0))
+
+
+def phase_krylov(device, count, big, card, profile):
+    """11a: every Krylov backend on the transportation LP, KRYLOV_E2E end
+    to end beside "dense", and one solve of KRYLOV_ONE_SOLVE on
+    multiperiod_lp(4096)'s A."""
+    from tulip_tpu_torch.kkt import krylov, make_backend
+
+    lp_t, ref_t = transportation()
+    golden = {}
+    with count.phase() as n11:
+        for name in KRYLOV_STATUS:
+            trips = KrylovTrips()
+            with trips.count():
+                golden[name] = krylov_model(lp_t, device, name) + (trips,)
+    for name, (mod, (st, z, wall), trips) in golden.items():
+        check(st.name == KRYLOV_STATUS[name], f"{name} on the transportation "
+              f"LP: {st.name}; the JAX package gives {KRYLOV_STATUS[name]}")
+        kind = type(mod.solver_state.kkt).__name__
+        check(mod.kkt_backend.name == name and kind == "KrylovState",
+              f"{name}: ran {mod.kkt_backend.name!r} with a {kind}")
+        rtol = KRYLOV_TOL[name][1]
+        err = ("status only" if rtol is None else
+               f"rel {check_objective(name, z, ref_t, rtol):.3e} <= {rtol}")
+        log(f"[11a] transportation LP, {name} (tolerance "
+            f"{KRYLOV_TOL[name][0] or 'default'}): {st.name} as the JAX "
+            f"package's, objective {z!r} vs HiGHS {ref_t!r} ({err}); "
+            f"{mod.barrier_iterations} iterations, wall {wall:.4f} s; "
+            f"{trips.describe()}")
+    log(f"  launches {n11}")
+
+    e2e = {}
+    with count.phase() as n11e:
+        for name, m in KRYLOV_E2E:
+            lp = staircase_lp(m)
+            ref = highs_staircase(*lp)
+            for be in ("dense", name):
+                trips = KrylovTrips()
+                mod = staircase_model(lp, device, "float64", be)
+                with trips.count():
+                    e2e[m, be] = (mod, solve_model(mod), trips, ref)
+    for (m, name), (mod, (st, z, wall), trips, ref) in e2e.items():
+        what = f"multiperiod_lp({m}) {name}"
+        check(st.name == "OPTIMAL", f"{what}: {st.name}")
+        err = check_objective(what, z, ref, 1e-6)
+        log(f"  {what}, f64: OPTIMAL, objective {z!r} vs HiGHS (rel "
+            f"{err:.3e}); {describe(mod, wall)}"
+            + (f"; {trips.describe()}" if trips.trips else ""))
+    log(f"  launches {n11e}; {card}")
+
+    A = torch.as_tensor(big[0].toarray(), device=device)[None]
+    state = k1_state(A, 4, device)
+    rtol = float(np.sqrt(np.finfo(np.float64).eps))
+    for name in KRYLOV_ONE_SOLVE:
+        be = make_backend(name)
+        st, ok = be.update(be.setup(A), *state[:3])
+        check(bool(ok.all()), f"{name}: update failed at m = 4096")
+        runs = {}
+        for every in (krylov._CHECK_EVERY, 1):
+            saved, krylov._CHECK_EVERY = krylov._CHECK_EVERY, every
+            trips = KrylovTrips()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with trips.count():
+                    dx, dy = be.solve(st, *state[3:])
+                torch.cuda.synchronize()
+                runs[every] = (time.perf_counter() - t0, trips, dx, dy)
+            finally:
+                krylov._CHECK_EVERY = saved
+        wall, trips, dx, dy = runs[krylov._CHECK_EVERY]
+        k1, k2 = krylov_residuals(A, *state, dx, dy)
+        own, what = (k2, "SQD-scaled K2") if name == "sqd-minres" else \
+            (k1, "K1")
+        check(own <= 10 * rtol, f"{name} at m = 4096: relative {what} "
+              f"residual {own:.3e} > 10 rtol")
+        w1, t1 = runs[1][:2]
+        log(f"[11a] one {name} solve on multiperiod_lp(4096)'s A (4096 x "
+            f"6240 f64), Θ⁻¹ over 1e4, Rd = {KRYLOV_REG}: {trips.trips[0]} "
+            f"trips, {wall * 1e3:.3f} ms = {wall / trips.trips[0] * 1e3:.4f} "
+            f"ms a trip, {trips.syncs} host syncs (a test every "
+            f"{krylov._CHECK_EVERY} trips); relative K1 residual {k1:.3e}, "
+            f"SQD-scaled K2 residual {k2:.3e} (its own: {what}, <= 10 rtol = "
+            f"{10 * rtol:.3e}); with a test on every trip: {t1.trips[0]} "
+            f"trips, {w1 * 1e3:.3f} ms = {w1 / t1.trips[0] * 1e3:.4f} ms a "
+            f"trip, {t1.syncs} syncs; {card}")
+        if profile and name == "cg":
+            trips = KrylovTrips()
+            with trips.count():
+                _, n_kernels = profile_solve(
+                    lambda: be.solve(st, *state[3:]),
+                    os.path.join(profile, "profile_krylov_cg.txt"), wall)
+            log(f"  launches a trip under the profiler: {n_kernels} kernel "
+                f"launches / {trips.trips[0]} trips = "
+                f"{n_kernels / trips.trips[0]:.2f}")
+
+
+def phase_explicit_minv(device, count, slice_run, iters4, small, ref_small):
+    """11b: ``explicit_minv`` through the chol-inv kernel on the slice, on
+    the dense f64 route, and its refusal of the fused solve."""
+    from tulip_tpu_torch.ipm.batch import batched_hsd_solve
+    from tulip_tpu_torch.ipm.data import make_lp_data
+    from tulip_tpu_torch.ipm.hsd import HSDOptions, hsd_solve
+    from tulip_tpu_torch.kkt import DenseK1Backend, SmallK1Backend
+
+    raws, dats, opts, refs = slice_run
+    runs = {}
+    with count.phase() as n11b:
+        for refine in (1, 2):
+            be = SmallK1Backend(explicit_minv=True, refinement_steps=refine)
+            t0 = time.perf_counter()
+            out = batched_hsd_solve(be, opts, dats)
+            torch.cuda.synchronize()
+            runs[refine] = (out, time.perf_counter() - t0)
+    check(n11b["chol_inv"] > 0, "explicit_minv slice: the chol-inv kernel "
+          "never launched")
+    # One sweep may leave a few lanes at the iteration limit: in either
+    # package a lane fails or not with the rounding
+    # (tests/test_torch_dense_options.py). That run is held to OPTIMAL or
+    # ITERATION_LIMIT, to at most ONE_SWEEP_TAIL_MAX lanes at the limit,
+    # and to HiGHS on its OPTIMAL lanes; two sweeps, to phase 4's checks.
+    out, wall = runs[1]
+    st = out.status.cpu().numpy()
+    check(set(st.tolist()) <= {OPTIMAL, ITERATION_LIMIT}, f"explicit_minv "
+          f"slice, one sweep: statuses {sorted(set(st.tolist()))}")
+    check(int((st != OPTIMAL).sum()) <= ONE_SWEEP_TAIL_MAX, f"explicit_minv "
+          f"slice, one sweep: {int((st != OPTIMAL).sum())} lanes at the "
+          f"iteration limit, over {ONE_SWEEP_TAIL_MAX}")
+    pobj = out.pobj.cpu().numpy()
+    for k, ref in enumerate(refs):
+        if st[k] == OPTIMAL:
+            check(abs(pobj[k] - ref) <= 1e-2 * max(1.0, abs(ref)),
+                  f"explicit_minv slice lane {k}: {pobj[k]} vs HiGHS {ref}")
+    it = out.niter.double()
+    tail = np.nonzero(st != OPTIMAL)[0].tolist()
+    log(f"[11b] slice through SmallK1Backend(explicit_minv=True, "
+        f"refinement_steps=1): {int((st == OPTIMAL).sum())}/{len(raws)} "
+        f"OPTIMAL, lanes {tail} ITERATION_LIMIT; mean iterations "
+        f"{it.mean().item():.4f} (max {int(it.max())}; phase 4's "
+        f"{iters4:.4f}), first solve wall {wall:.3f} s")
+    out, wall = runs[2]
+    n_opt, worst = check_slice(raws, out, refs, "explicit_minv slice, two "
+                               "sweeps")
+    it = out.niter.double()
+    log(f"  refinement_steps=2: {n_opt}/{len(raws)} OPTIMAL, worst rel obj "
+        f"err vs HiGHS (128 lanes) {worst:.3e}, mean iterations "
+        f"{it.mean().item():.4f} (max {int(it.max())}), first solve wall "
+        f"{wall:.3f} s; launches {n11b}")
+    A, b, c, u = small
+    dat = make_lp_data(A.toarray(), b, c, 0.0, np.zeros(len(c)), u,
+                       device=device)
+    with count.phase() as n11d:
+        t0 = time.perf_counter()
+        st = hsd_solve(dat, DenseK1Backend(explicit_minv=True), HSDOptions())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(int(st.status[0]) == OPTIMAL, f"explicit_minv dense on "
+          f"multiperiod_lp(1024): status {int(st.status[0])}")
+    err = check_objective("explicit_minv dense multiperiod_lp(1024)",
+                          float(st.pobj[0]), ref_small, 1e-6)
+    log(f"  hsd_solve(DenseK1Backend(explicit_minv=True)) on "
+        f"multiperiod_lp(1024) f64 (no presolve): OPTIMAL in "
+        f"{int(st.niter[0])} iterations, objective {float(st.pobj[0])!r} vs "
+        f"HiGHS (rel {err:.3e}), wall {wall:.4f} s; launches {n11d}")
+    try:
+        SmallK1Backend(explicit_minv=True, fused_solve=True)
+    except ValueError as e:
+        log(f"  SmallK1Backend(explicit_minv=True, fused_solve=True) "
+            f"refused: {e}")
+    else:
+        check(False, "SmallK1Backend(explicit_minv=True, fused_solve=True) "
+              "did not raise")
+
+
+def phase_matmul_precision(device, card, reps=5, m=8192,
+                           names=("highest", "high")):
+    """11c: DenseK1Backend(inv_factor=True, refinement_steps=2) with each
+    ``matmul_precision`` of ``names`` at bench.py's m = 8192 point (f32,
+    the inputs of benchmarks/mfu.py:measure): update plus one solve,
+    median of ``reps`` runs of each in turn, each one's relative augmented
+    residual, and torch's flag restored after every call; returns {name:
+    residual}."""
+    from tulip_tpu_torch.kkt import DenseK1Backend
+
+    A = torch.as_tensor(bench_staircase(m), device=device)[None]
+    n = A.shape[-1]
+    rng = np.random.default_rng(1)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)[None]
+
+    theta_inv = t(10.0 ** rng.uniform(-2, 2, n))
+    regP, regD = t(np.full(n, 1e-6)), t(np.full(m, 1e-6))
+    xi_p, xi_d = t(rng.standard_normal(m)), t(rng.standard_normal(n))
+    bes = {c: DenseK1Backend(inv_factor=True, refinement_steps=2,
+                             matmul_precision=c) for c in names}
+    state = bes[names[0]].setup(A)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    times = {c: [] for c in names}
+    out = {}
+    order = list(names) + list(reversed(names))
+    for k in range(len(names) * (reps + 1)):
+        c = order[k % len(order)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ok = bes[c].update(state, theta_inv, regP, regD)
+        dx, dy = bes[c].solve(st, xi_p, xi_d)
+        torch.cuda.synchronize()
+        if k >= len(names):            # the first of each is a warm-up
+            times[c].append(time.perf_counter() - t0)
+        check(torch.backends.cuda.matmul.allow_tf32 == flag, f"matmul "
+              f"precision {c}: torch's allow_tf32 not restored")
+        check(bool(ok.all()), f"matmul precision {c}: update failed")
+        out[c] = (dx, dy)
+    res = {c: augmented_residual(A, theta_inv, regP, regD, xi_p, xi_d,
+                                 *out[c]) for c in names}
+    base = res[names[0]]
+    for c in names:
+        log(f"[11c] DenseK1Backend(inv_factor=True, refinement_steps=2, "
+            f"matmul_precision={c!r}) on benchmarks/bench_sparse.py's "
+            f"staircase({m}) ({m} x {n} f32), update + one solve: median of "
+            f"{len(times[c])} {statistics.median(times[c]) * 1e3:.3f} ms; "
+            f"relative augmented residual {res[c]:.3e} ({res[c] / base:.3f}x "
+            f"the first's); torch's allow_tf32 restored ({flag}) after each "
+            f"call; {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
@@ -1041,9 +1498,10 @@ def check_entry(probs, res, refs=None, statuses=None, what="entry"):
 
 def profile_solve(solve, path, wall_s):
     """torch.profiler table of one ``solve`` into ``path``; returns the
-    summed kernel time in ms. The profiled run's own wall is inflated by
-    the profiler, so the idle share is taken against ``wall_s``, the
-    median unprofiled wall of the same solve."""
+    summed kernel time in ms and the count of kernel launches. The
+    profiled run's own wall is inflated by the profiler, so the idle share
+    is taken against ``wall_s``, the median unprofiled wall of the same
+    solve."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,7 +1521,7 @@ def profile_solve(solve, path, wall_s):
         f.write(summary + "\n" + ka.table(sort_by="self_cuda_time_total",
                                           row_limit=40) + "\n")
     log(f"  profile: {summary} -> {path}")
-    return busy_ms
+    return busy_ms, n_kernels
 
 
 COUNTERS = {"chol_inv": ("chol", "KERNEL_LAUNCHES"),
@@ -1657,6 +2115,14 @@ def main(argv=None):
         f"iterations warm {warm.niter.double().mean().item():.4f}, cold "
         f"{cold.niter.double().mean().item():.4f}; warm wall {wall9:.4f} s; "
         f"launches {n9}")
+    t11 = time.perf_counter()
+    phase_krylov(device, count, big, card, args.profile)
+    phase_explicit_minv(device, count, (raws, dats, opts, refs_slice),
+                        iters.mean(), small, ref_small)
+    res = phase_matmul_precision(device, card)
+    check(res["high"] <= 10 * res["highest"], f"'high' residual "
+          f"{res['high']:.3e} over 10x 'highest''s {res['highest']:.3e}")
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

@@ -139,20 +139,22 @@ def test_registry_matches_reference(name):
 
 def test_registry_names():
     assert sorted(kkt.available_backends()) == [
-        "banded", "dense", "dense-ldl", "dense-mixed", "dense-pallas",
-        "extended", "extended-dd", "pallas-small", "sparse", "sparse-ldl",
-        "sparse-smw"]
+        "banded", "car", "cg", "cr", "craig", "craigmr", "dense",
+        "dense-ldl", "dense-mixed", "dense-pallas", "extended",
+        "extended-dd", "lsmr", "lsqr", "minares", "minres", "minres-qlp",
+        "pallas-small", "sparse", "sparse-ldl", "sparse-smw", "sqd-minres",
+        "symmlq", "tricg"]
     assert SmallK1Backend.name == "pallas-small"
     assert make_backend().name == "dense"
     assert make_backend(None, "K2").name == "dense-ldl"
     with pytest.raises(ValueError):
         make_backend("dense", "K2")
     assert make_backend("sparse-ldl").name == "sparse-ldl"
-    assert sorted(kkt.UNPORTED) == sorted(
-        ["car", "cg", "cr", "craig", "craigmr", "lsmr", "lsqr", "minares",
-         "minres", "minres-qlp", "sqd-minres", "symmlq", "tricg", "schur"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_backend("cg")
+    assert kkt.UNPORTED == {
+        "schur": "ROADMAP queue 1, item 10 (distributed Schur path)"}
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_backend("schur")
+    assert make_backend("cg").name == "cg"
 
 
 def tf32_round(x):

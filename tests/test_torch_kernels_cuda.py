@@ -656,3 +656,98 @@ def test_sparse_ldl_update_and_solve_on_card(cuda, schedule):
     assert card[2].tolist() == host[2].tolist() == [True]
     if schedule == "column":
         assert not card[3].any()
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_small_k1_explicit_minv_on_card_uses_kernel(cuda, refine):
+    """``SmallK1Backend(explicit_minv=True)`` forms K⁻¹ from the chol-inv
+    kernel's L⁻¹ on the card: one launch an update, K⁻¹ within 1e-4 of the
+    plain version's relative to its size, and the solve within the f32
+    bars of tests/test_kkt.py of the CPU's."""
+    from tulip_tpu_torch.kkt import SmallK1Backend
+
+    rng = np.random.default_rng(7)
+    B, m, n = 64, 48, 96
+    A = torch.as_tensor(rng.standard_normal((B, m, n)), dtype=torch.float32)
+    theta = torch.as_tensor(10.0 ** rng.uniform(-2, 2, (B, n)),
+                            dtype=torch.float32)
+    regP = torch.full((B, n), 1e-6)
+    regD = torch.full((B, m), 1e-4)
+    xi_p = torch.as_tensor(rng.standard_normal((B, m)), dtype=torch.float32)
+    xi_d = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32)
+    be = SmallK1Backend(explicit_minv=True, refinement_steps=refine)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        before = chol.KERNEL_LAUNCHES
+        st, ok = be.update(be.setup(A.to(dev)), theta.to(dev),
+                           regP.to(dev), regD.to(dev))
+        dx, dy = be.solve(st, xi_p.to(dev), xi_d.to(dev))
+        torch.cuda.synchronize()
+        launched = chol.KERNEL_LAUNCHES - before
+        out.append((launched, ok.cpu(), st.L.cpu(), dx.cpu(), dy.cpu()))
+    (n_card, ok_c, Kinv_c, dx_c, dy_c), (n_host, ok_h, Kinv_h, dx_h, dy_h) \
+        = out
+    assert (n_card, n_host) == (1, 0)
+    assert ok_c.all() and ok_h.all()
+    scale = Kinv_h.abs().amax(dim=(-1, -2), keepdim=True)
+    assert ((Kinv_c - Kinv_h).abs() / scale).max().item() <= 1e-4
+    bar = 1e-2 if refine == 0 else 10 * np.sqrt(np.finfo(np.float32).eps)
+    for got, want in ((dx_c, dx_h), (dy_c, dy_h)):
+        err = (got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1)
+        assert err.max().item() <= bar
+
+
+def test_krylov_solves_on_card_match_the_cpu(cuda):
+    """cg, sqd-minres and lsmr on the card in f64 against the CPU on the
+    same state: within 1e-6 relative (their stopping tests may fall one
+    trip apart)."""
+    from tulip_tpu_torch.kkt import make_backend
+
+    rng = np.random.default_rng(8)
+    m, n = 40, 90
+    A = torch.as_tensor(rng.standard_normal((2, m, n)))
+    theta = torch.as_tensor(10.0 ** rng.uniform(-2, 2, (2, n)))
+    regP = torch.full((2, n), 1e-8, dtype=torch.float64)
+    regD = torch.full((2, m), 1e-6, dtype=torch.float64)
+    xi_p = torch.as_tensor(rng.standard_normal((2, m)))
+    xi_d = torch.as_tensor(rng.standard_normal((2, n)))
+    for name in ("cg", "sqd-minres", "lsmr"):
+        be = make_backend(name, refinement_steps=1)
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            st, ok = be.update(be.setup(A.to(dev)), theta.to(dev),
+                               regP.to(dev), regD.to(dev))
+            out.append([t.cpu() for t in be.solve(st, xi_p.to(dev),
+                                                  xi_d.to(dev))])
+        for got, want in zip(*out):
+            assert ((got - want).abs().max()
+                    / want.abs().max()).item() <= 1e-6, name
+
+
+def test_tf32x3_gemm_on_card_keeps_f32_digits(cuda):
+    """``gemm(..., "tf32x3")`` on the card, three TF32 products of a split,
+    within 8x of IEEE f32's error against the f64 product (the split's
+    ``lo`` keeps 11 of its 13 bits, and the tensor cores add in f32), where
+    one TF32 pass is at least 100x off; torch's flag is the caller's
+    afterwards."""
+    from tulip_tpu_torch.kkt.dense import allow_tf32, gemm
+
+    rng = np.random.default_rng(9)
+    a64, b64 = rng.standard_normal((256, 2048)), rng.standard_normal((2048,
+                                                                      192))
+    a = torch.as_tensor(a64, dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(b64, dtype=torch.float32, device=cuda)
+    exact = torch.as_tensor(a64.astype(np.float32).astype(np.float64)
+                            @ b64.astype(np.float32).astype(np.float64))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    err = {}
+    with allow_tf32(False):
+        err["ieee"] = (a @ b).double().cpu() - exact
+        err["tf32x3"] = gemm(a, b, "tf32x3").double().cpu() - exact
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    with allow_tf32(True):
+        err["tf32"] = (a @ b).double().cpu() - exact
+    assert torch.backends.cuda.matmul.allow_tf32 is flag
+    e = {k: v.abs().max().item() for k, v in err.items()}
+    assert e["tf32x3"] <= 8 * e["ieee"], e
+    assert e["tf32"] >= 100 * e["ieee"], e

@@ -113,9 +113,8 @@ def small_staircase(m, seed=0):
 
 
 @pytest.mark.parametrize("params", [
-    {"KKT_Backend": "cg"},
     {"KKT_Backend": "schur"},
-], ids=["krylov", "schur"])
+], ids=["schur"])
 def test_unported_routes_raise_before_device_work(params):
     """device="cuda" on a machine without CUDA: reaching any device work
     would raise something else than NotImplementedError."""
@@ -135,14 +134,15 @@ def test_unported_routes_raise_before_device_work(params):
       "IPM_ToleranceRGap": 1e-10, "IPM_ToleranceIFeas": 1e-10},
      "extended"),
     ({"KKT_System": "K2", "KKT_Backend": "sparse-ldl"}, "sparse-ldl"),
-], ids=["sparse-first", "K2", "extended", "unported-backend"])
+    ({"KKT_Backend": "cg"}, "cg"),
+], ids=["sparse-first", "K2", "extended", "unported-backend", "cg"])
 def test_ported_routes_solve(params, backend):
     """The sparse-first path (item 8b), System="K2" below m = 2048
-    (item 7), tolerances below 1e-9 in f64 (item 6) and a named
+    (item 7), tolerances below 1e-9 in f64 (item 6), a named
     "sparse-ldl" (item 8c; here it falls back to "dense-ldl"'s state, the
-    file being too small to tile) solve the file on the CPU; sparse-first
-    falls back to the dense data on a file this small, as the reference
-    does."""
+    file being too small to tile) and a named Krylov backend (item 9;
+    it raised before) solve the file on the CPU; sparse-first falls back
+    to the dense data on a file this small, as the reference does."""
     m = tlt.Model(device="cpu")
     m.pbdata = tlt.read_mps(str(DATA / "lp_freevars.mps"))
     m.params.Presolve.Level = 0

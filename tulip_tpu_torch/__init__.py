@@ -13,14 +13,16 @@ there. So far it covers:
   ``"sparse-ldl"``; from ``KKT.SparseFirstThreshold`` rows the
   sparse-first data path (no dense A) through ``"sparse"`` or
   ``"sparse-smw"``; ``KKT.System="K2"`` through ``"dense-ldl"`` (below
-  m = 2048) or ``"sparse-ldl"``; and the precision ladder, ``"extended"``
-  (f64 below 1e-9), ``"extended-dd"`` and ``"dense-mixed"``;
+  m = 2048) or ``"sparse-ldl"``; the precision ladder, ``"extended"``
+  (f64 below 1e-9), ``"extended-dd"`` and ``"dense-mixed"``; and, when
+  named, the thirteen matrix-free Krylov backends (``"cg"``,
+  ``"sqd-minres"``, ``"lsmr"``, ...);
 - many LPs: ``batch_linprog`` (HSD or MPC), ``ipm.batched_hsd_solve``,
   ``ipm.batched_mpc_solve`` and the warm-started
   ``ipm.batched_hsd_resolve``.
 
-The Krylov backends and the distributed Schur path are not ported yet
-(naming them raises ``NotImplementedError`` with their ROADMAP item).
+The distributed Schur path is not ported yet (naming ``"schur"`` raises
+``NotImplementedError`` with its ROADMAP item).
 
 Three hand-written CUDA kernels serve the f32 paths on the card:
 ``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``, one or

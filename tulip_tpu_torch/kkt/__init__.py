@@ -11,13 +11,15 @@ Backends are frozen dataclasses implementing ``setup`` / ``update`` /
 flag that the IPM's regularization ladder branches on.
 
 The registry uses the reference's names, so ``Parameters.KKT.Backend``
-means the same backend in both packages. A name the reference registers
-but this package has not ported raises ``NotImplementedError`` naming the
-ROADMAP item that will port it; it never falls back to another backend.
+means the same backend in both packages. Every name the reference
+registers is ported except ``"schur"``, which raises
+``NotImplementedError`` naming the ROADMAP item that will port it; it
+never falls back to another backend.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Type
 
 from .banded import BandedK1Backend
@@ -26,6 +28,11 @@ from .dense import DenseK1Backend, DenseK1State
 from .dense_ldl import DenseK2Backend
 from .extended import ExtendedDDK1Backend, ExtendedK1Backend
 from .gram import GramK1Backend
+from .krylov import (CarK1Backend, CgK1Backend, CraigK1Backend,
+                     CraigmrK1Backend, CrK1Backend, LsmrK1Backend,
+                     LsqrK1Backend, MinaresK2Backend, MinresK2Backend,
+                     MinresQlpK2Backend, SqdMinresK2Backend, SymmlqK2Backend,
+                     TricgK2Backend)
 from .mixed import MixedK1Backend
 from .small_k1 import SmallK1Backend
 from .sparse import SparseK1Backend
@@ -34,16 +41,10 @@ from .splitting import SplitK1Backend
 
 _REGISTRY: Dict[str, Type[KKTBackend]] = {}
 
-_KRYLOV = "ROADMAP queue 1, item 9 (kkt/krylov.py)"
-_DISTRIBUTED = "ROADMAP queue 1, item 10 (distributed Schur path)"
-
 # The reference's other registered backends, each with the ROADMAP item
 # that will port it.
 UNPORTED: Dict[str, str] = {
-    **{k: _KRYLOV for k in ("car", "cg", "cr", "craig", "craigmr", "lsmr",
-                            "lsqr", "minares", "minres", "minres-qlp",
-                            "sqd-minres", "symmlq", "tricg")},
-    "schur": _DISTRIBUTED,
+    "schur": "ROADMAP queue 1, item 10 (distributed Schur path)",
 }
 
 
@@ -55,7 +56,11 @@ def register(cls: Type[KKTBackend]) -> Type[KKTBackend]:
 for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend,
              BandedK1Backend, SparseK1Backend, SplitK1Backend,
              DenseK2Backend, SparseK2Backend, MixedK1Backend,
-             ExtendedK1Backend, ExtendedDDK1Backend):
+             ExtendedK1Backend, ExtendedDDK1Backend,
+             CarK1Backend, CgK1Backend, CraigK1Backend, CraigmrK1Backend,
+             CrK1Backend, LsmrK1Backend, LsqrK1Backend, MinaresK2Backend,
+             MinresK2Backend, MinresQlpK2Backend, SqdMinresK2Backend,
+             SymmlqK2Backend, TricgK2Backend):
     register(_cls)
 
 
@@ -75,6 +80,11 @@ def make_backend(name=None, system=None, refinement_steps: int = 0,
     cls = _REGISTRY[name]
     if system is not None and system not in cls.systems:
         raise ValueError(f"backend {name!r} does not support system {system!r}")
+    if cls.experimental:
+        warnings.warn(
+            f"KKT backend {name!r} is experimental: it passes the "
+            "augmented-system conformance kit but is not validated for "
+            "full 1e-8 end-to-end solves", stacklevel=2)
     return cls(refinement_steps=refinement_steps, **kwargs)
 
 
@@ -82,4 +92,9 @@ __all__ = ["KKTBackend", "DenseK1Backend", "DenseK1State", "GramK1Backend",
            "SmallK1Backend", "BandedK1Backend", "SparseK1Backend",
            "SplitK1Backend", "DenseK2Backend", "SparseK2Backend",
            "MixedK1Backend", "ExtendedK1Backend", "ExtendedDDK1Backend",
-           "make_backend", "available_backends", "register"]
+           "CarK1Backend", "CgK1Backend", "CraigK1Backend",
+           "CraigmrK1Backend", "CrK1Backend", "LsmrK1Backend",
+           "LsqrK1Backend", "MinaresK2Backend", "MinresK2Backend",
+           "MinresQlpK2Backend", "SqdMinresK2Backend", "SymmlqK2Backend",
+           "TricgK2Backend", "make_backend", "available_backends",
+           "register"]

@@ -36,6 +36,9 @@ class KKTBackend:
 
     name = "abstract"
     systems: Tuple[str, ...] = ()
+    # Experimental backends pass the conformance kit but are not validated
+    # for full 1e-8 end-to-end solves; make_backend warns when it builds one.
+    experimental = False
     # Gate of the conformance kit's late-IPM ill-conditioning sweeps
     # (kkt/testkit.py): the largest scale-aware relative residual on the
     # 16-decade θ sweep. None opts out (matrix-free backends).

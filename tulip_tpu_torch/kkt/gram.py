@@ -35,9 +35,10 @@ class GramK1Backend(DenseK1Backend):
     name = "dense-pallas"
 
     def __post_init__(self):
-        if self.inv_factor:
-            raise ValueError("GramK1Backend keeps L itself: inv_factor must "
-                             "stay False")
+        super().__post_init__()
+        if self.inv_factor or self.explicit_minv:
+            raise ValueError("GramK1Backend keeps L itself: inv_factor and "
+                             "explicit_minv must stay False")
 
     def update(self, state: DenseK1State, theta_inv, regP, regD):
         A = state.A

@@ -36,6 +36,12 @@ class SmallK1Backend(DenseK1Backend):
     ``solve_unrefined`` stays the unfused ``_base_solve``, as in the
     reference.
 
+    ``explicit_minv=True`` stores ``K⁻¹ = L⁻ᵀL⁻¹``, formed from the
+    kernel's L⁻¹ by one batched GEMM (``pallas_chol.py:134-135``), and
+    solves with one GEMV. It refuses ``fused_solve=True``: the fused
+    kernel takes L⁻¹, not K⁻¹. The reference accepts the pair and then
+    solves with K⁻² (ROADMAP queue 3).
+
     ``pack`` is not a tuning option: it exists so that a solve can drive
     the packed chol-inv launch (the port of the reference's lane-packed
     kernel, which the reference reaches only through
@@ -51,9 +57,13 @@ class SmallK1Backend(DenseK1Backend):
     pack: int = 0
 
     def __post_init__(self):
+        super().__post_init__()
         if not self.inv_factor:
             raise ValueError("SmallK1Backend stores L⁻¹: inv_factor must "
                              "stay True")
+        if self.explicit_minv and self.fused_solve:
+            raise ValueError("explicit_minv stores K⁻¹, but the fused solve "
+                             "kernel takes L⁻¹: fused_solve must stay False")
 
     def update(self, state: DenseK1State, theta_inv, regP, regD):
         A = state.A
@@ -64,6 +74,8 @@ class SmallK1Backend(DenseK1Backend):
         K = normal_matrix(A, d, regD)
         Linv, ok = identity_where_failed(
             batched_cholesky_inverse(K, pack=self.pack))
+        if self.explicit_minv:
+            Linv = Linv.mT @ Linv
         return (DenseK1State(A=A, d=d, theta_reg=theta_reg, regD=regD,
                              L=Linv), ok)
 

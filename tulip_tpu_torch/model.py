@@ -31,9 +31,11 @@ every route it takes at its defaults is ported:
   chol-inv kernel); f64 with a tolerance below 1e-9 takes ``"extended"``
   (double-double refinement).
 
-Named backends the reference registers but this package has not ported
-(the Krylov family, ``"schur"``) raise ``NotImplementedError`` before any
-device work, naming their ROADMAP item.
+A named backend takes the dense data path, as in the reference (only
+``None``, ``"sparse"`` and ``"sparse-smw"`` may go sparse-first); the
+Krylov family (``kkt/krylov.py``) runs with no refinement sweep by
+default. ``"schur"``, which this package has not ported, raises
+``NotImplementedError`` before any device work, naming its ROADMAP item.
 """
 
 from __future__ import annotations
