@@ -137,22 +137,48 @@ Phases, each of which exits non-zero on a failed check:
    staircase(8192): update plus one solve, median of 5 in turns, each
    relative augmented residual (``"high"``'s within 10x of
    ``"highest"``'s), torch's flag restored after each;
+12. after phase 11, the distributed Schur path (``"schur"``) at the
+   reference's regime-2b blocks (m0, n0, mk, nk) = (8, 128, 128, 256),
+   f64 at the default tolerances (``parallel/dryrun.py:two_stage_arrays``,
+   seed 11):
+12a. K = 32 (m = 4104, n = 8320): ``hsd_solve`` through ``"schur"``
+   (unsharded) and through ``"dense"`` on ``block_angular_to_dense`` of
+   the same LP, both OPTIMAL and within 1e-7·max(1,|f|); iterations, walls,
+   ms and kernel launches (torch.profiler) an iteration, and the one
+   process's ``Comm`` counter an iteration;
+12b. K = 1024 (m = 131,080, n = 262,272; a dense K1 matrix would take
+   137 GB): OPTIMAL, relative gap within the tolerance, ‖Ax−b‖∞/(1+‖b‖∞)
+   ≤ 1e-8 recomputed by blocks in numpy on the host; wall, ms and launches
+   an iteration, peak device memory beside the bytes of T and W;
+12c. the 12a LP sharded over an NCCL group of one in this process (12a's
+   iterations and objective bit for bit), then over two spawned processes
+   on the card in a Gloo group (collectives staged through host memory):
+   12a's iterations, the objective within 1e-8 relative, the ranks' final
+   states equal bit for bit, the largest collective at most n0² = 16,384
+   elements and one n0×n0 all-reduce per factorization attempt; the
+   ``Comm`` counter an iteration;
+12d. ``shard_batch`` of phase 4's 2048 LPs over the same two processes
+   through ``"pallas-small"`` (the chol-inv kernel), then ``gather_lanes``:
+   2048/2048 OPTIMAL and mean iterations within 0.01 of phase 4's; lanes
+   whose count differs and the walls beside phase 4's. The workers'
+   chol-inv launches join the main path's counts;
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
-   4-9 and 11 gave the fused solve and every (B, m, instances per block)
-   they gave the chol-inv kernel, held against the plain version on seeded
-   inputs of that shape with phase 3's and 3c's bars; the chol-inv shapes
-   must include the blocked path's (1, 1024) and an m = 256 bucket.
+   4-9, 11 and 12 gave the fused solve and every (B, m, instances per
+   block) they gave the chol-inv kernel, held against the plain version on
+   seeded inputs of that shape with phase 3's and 3c's bars; the chol-inv
+   shapes must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 and 11 (6b, 6c, 7b, 7c and 7d included) are the main path: every
-kernel's launch count is reset just before each of them and read just
-after. The last lines are the card's name and power limit, a JSON list of
+Phases 4-9, 11 and 12 (6b, 6c, 7b, 7c, 7d and 12a-12d included) are the
+main path: every kernel's launch count is reset just before each of them
+and read just after (12d's in each worker, just before and after its
+solve). The last lines are the card's name and power limit, a JSON list of
 the kernels with their launches, errors, times and bounds, and the JSON
 result ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
 phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
 ``multiperiod_lp(8192)``, of phase 7b's K2 solve, of phase 7c's
-``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)`` and of phase 11a's
-cg solve at m = 4096 to DIR.
+``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)``, of phase 11a's
+cg solve at m = 4096 and of phase 12a's and 12b's solves to DIR.
 """
 
 from __future__ import annotations
@@ -166,6 +192,7 @@ import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -258,6 +285,13 @@ KRYLOV_E2E = [("cg", 256), ("sqd-minres", 128)]
 # Phase 11a's one solve at full width: Θ⁻¹ over four decades, Rp = Rd.
 KRYLOV_ONE_SOLVE = ("cg", "sqd-minres", "lsmr")
 KRYLOV_REG = 1e-8
+# Phase 12: scenarios of the block-angular LPs (the reference's regime-2b
+# blocks, seed 11; K = 1024 is 131,080 x 262,272), the backend of the
+# group of one in this process, and the two-process job's wall limit.
+SCHUR_K = 32
+SCHUR_BIG_K = 1024
+SCHUR_GROUP = "nccl"
+SCHUR_JOB_S = 300.0
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
 # memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
@@ -1393,6 +1427,228 @@ def phase_matmul_precision(device, card, reps=5, m=8192,
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the distributed Schur path
+# ---------------------------------------------------------------------------
+
+def schur_residual(arrays, x):
+    """‖Ax − b‖∞ / (1 + ‖b‖∞) of the block-angular LP of ``arrays`` (the
+    arguments of ``make_block_angular``) at ``x``, by blocks in numpy
+    f64 on the host."""
+    A0, b0, _, T, W, h = arrays[:6]
+    n0 = A0.shape[1]
+    K, _, nk = W.shape
+    x0, xk = x[:n0], x[n0:].reshape(K, nk)
+    r0 = A0 @ x0 - b0
+    rk = np.einsum("kij,j->ki", T, x0) + np.einsum("kij,kj->ki", W, xk) - h
+    return (max(np.abs(r0).max(), np.abs(rk).max())
+            / (1.0 + max(np.abs(b0).max(), np.abs(h).max())))
+
+
+def comm_line(counts, nbytes, niter):
+    """A Comm counter, per iteration: collectives, their sizes, bytes."""
+    per = ", ".join(f"{op} {numel}: {c / niter:.2f}"
+                    for (op, numel), c in sorted(counts.items()))
+    return (f"{sum(counts.values()) / niter:.2f} collectives an iteration "
+            f"({per}), {nbytes / niter:.0f} B an iteration")
+
+
+def phase_distributed(device, count, card, slice_run, iters4, wall4,
+                      profile):
+    """Phase 12: the Schur backend at the reference's regime-2b blocks on
+    one card (12a against dense, 12b at K = SCHUR_BIG_K), sharded over a
+    group of one in this process and over two processes on the card
+    (12c), and ``shard_batch`` of the slice over the same two (12d)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tulip_tpu_torch.ipm.batch import batched_hsd_solve, lane_split
+    from tulip_tpu_torch.ipm.hsd import HSDOptions, hsd_solve
+    from tulip_tpu_torch.kkt import (DenseK1Backend, SchurK1Backend,
+                                     SmallK1Backend)
+    from tulip_tpu_torch.parallel import (block_angular_to_dense, init_comm,
+                                          make_block_angular, shard_scenarios)
+    from tulip_tpu_torch.parallel.dryrun import (VOLUME_DIMS,
+                                                 collective_signature,
+                                                 launch, run_cases,
+                                                 two_stage_arrays)
+
+    t12 = time.perf_counter()
+    opts = HSDOptions()
+    n0 = VOLUME_DIMS[1]
+
+    def timed(solve):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def launches(solve, name, wall):
+        path = os.path.join(profile, name) if profile else os.devnull
+        return profile_solve(solve, path, wall)[1]
+
+    # -- 12a: Schur against dense at K = SCHUR_K ---------------------------
+    arrays = two_stage_arrays(SCHUR_K, 11, VOLUME_DIMS)
+    dat = make_block_angular(*arrays, device=device)
+    dense = block_angular_to_dense(dat)
+    with count.phase() as n12a:
+        out_s, wall_s = timed(lambda: hsd_solve(dat, SchurK1Backend(), opts))
+        counts_a, bytes_a = dict(dat.comm.counts), dat.comm.nbytes
+        out_d, wall_d = timed(lambda: hsd_solve(dense, DenseK1Backend(),
+                                                opts))
+    it_s, it_d = int(out_s.niter), int(out_d.niter)
+    fs, fd = float(out_s.pobj), float(out_d.pobj)
+    check(int(out_s.status) == OPTIMAL and int(out_d.status) == OPTIMAL,
+          f"12a: statuses {int(out_s.status)} (schur), "
+          f"{int(out_d.status)} (dense)")
+    check(abs(fs - fd) <= 1e-7 * max(1.0, abs(fd)),
+          f"12a: schur pobj {fs!r} vs dense {fd!r}")
+    ls = launches(lambda: hsd_solve(dat, SchurK1Backend(), opts),
+                  "profile_schur.txt", wall_s)
+    ld = launches(lambda: hsd_solve(dense, DenseK1Backend(), opts),
+                  "profile_schur_dense.txt", wall_d)
+    log(f"[12a] block-angular LP, K={SCHUR_K} x (mk, nk) = "
+        f"({VOLUME_DIMS[2]}, {VOLUME_DIMS[3]}), (m0, n0) = "
+        f"({VOLUME_DIMS[0]}, {n0}), m={dat.nrow}, n={dat.ncol}, f64 at "
+        f"the default tolerances: schur OPTIMAL in {it_s} iterations, wall "
+        f"{wall_s:.4f} s, {wall_s / it_s * 1e3:.3f} ms an iteration, "
+        f"{ls / it_s:.1f} kernel launches an iteration; dense OPTIMAL in "
+        f"{it_d}, wall {wall_d:.4f} s, {wall_d / it_d * 1e3:.3f} ms an "
+        f"iteration, {ld / it_d:.1f} launches an iteration; pobj {fs!r} vs "
+        f"{fd!r} (rel {abs(fs - fd) / max(1.0, abs(fd)):.3e}); launches of "
+        f"our kernels {n12a}")
+    log(f"  Comm() of one process: {comm_line(counts_a, bytes_a, it_s)}")
+    del dense, out_d
+
+    # -- 12b: K = SCHUR_BIG_K, where the dense K1 matrix cannot exist ------
+    arrays_b = two_stage_arrays(SCHUR_BIG_K, 11, VOLUME_DIMS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dat_b = make_block_angular(*arrays_b, device=device)
+    with count.phase() as n12b:
+        out_b, wall_b = timed(lambda: hsd_solve(dat_b, SchurK1Backend(),
+                                                opts))
+    peak = torch.cuda.max_memory_allocated() - base
+    tw = (dat_b.T.numel() + dat_b.W.numel()) * dat_b.T.element_size()
+    it_b = int(out_b.niter)
+    check(int(out_b.status) == OPTIMAL, f"12b: status {int(out_b.status)}")
+    pb, db = float(out_b.pobj), float(out_b.dobj)
+    gap = abs(pb - db) / (1.0 + abs(db))
+    check(gap <= opts.ToleranceRGap, f"12b: relative gap {gap:.3e}")
+    x = (out_b.pt.x / out_b.pt.tau.unsqueeze(-1))[0].cpu().numpy()
+    res_b = schur_residual(arrays_b, x)
+    check(res_b <= 1e-8, f"12b: ‖Ax−b‖∞/(1+‖b‖∞) = {res_b:.3e}")
+    lb = launches(lambda: hsd_solve(dat_b, SchurK1Backend(), opts),
+                  "profile_schur_big.txt", wall_b)
+    log(f"[12b] K={SCHUR_BIG_K}: m={dat_b.nrow}, n={dat_b.ncol} (a dense "
+        f"K1 matrix would take {dat_b.nrow ** 2 * 8 / 1e9:.1f} GB): OPTIMAL "
+        f"in {it_b} iterations, relative gap {gap:.3e}, "
+        f"‖Ax−b‖∞/(1+‖b‖∞) {res_b:.3e} (host, by blocks); wall "
+        f"{wall_b:.4f} s, {wall_b / it_b * 1e3:.3f} ms an iteration, "
+        f"{lb / it_b:.1f} kernel launches an iteration; peak device memory "
+        f"{peak / 1e6:.1f} MB above the {base / 1e6:.1f} MB held before, "
+        f"T + W {tw / 1e6:.1f} MB; launches of our kernels {n12b}")
+    del dat_b, out_b, arrays_b
+
+    # -- 12c: sharded over a group of one, then over two processes ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        comm = init_comm(SCHUR_GROUP, 0, 1, os.path.join(tmp, "store"))
+        try:
+            with count.phase() as n12c:
+                out_1, wall_1 = timed(lambda: hsd_solve(
+                    shard_scenarios(dat, comm), SchurK1Backend(), opts))
+        finally:
+            dist.destroy_process_group()
+    check(int(out_1.niter) == it_s and float(out_1.pobj) == fs,
+          f"12c: a {SCHUR_GROUP} group of one gave {int(out_1.niter)} "
+          f"iterations, pobj {float(out_1.pobj)!r}; unsharded {it_s}, {fs!r}")
+    log(f"[12c] sharded over a {SCHUR_GROUP} group of one: {it_s} "
+        f"iterations, pobj equal to 12a's bit for bit, wall {wall_1:.4f} s; "
+        f"{comm_line(comm.counts, comm.nbytes, it_s)}")
+    raws, dats, opts4, refs_slice = slice_run
+    cases = [("schur", "schur", dict(arrays=arrays, state=True)),
+             ("slice", "batch", dict(nb=len(raws), m=48, n=96, seed=0,
+                                     tol=TOL, backend="pallas-small",
+                                     refinement_steps=1, reps=2))]
+    t0 = time.perf_counter()
+    ranks = launch(run_cases, 2, backend="gloo",
+                   device=torch.device(device).type, timeout_s=SCHUR_JOB_S,
+                   args=(cases,))
+    wall_job = time.perf_counter() - t0
+    check(all(not r["modules"] for r in ranks),
+          f"12c: a worker imported {[r['modules'] for r in ranks]}")
+    for k, r in enumerate(ranks):
+        g = r["schur"]
+        check(g["status"] == OPTIMAL and g["niter"] == it_s
+              and abs(g["pobj"] - fs) <= 1e-8 * max(1.0, abs(fs)),
+              f"12c rank {k}: status {g['status']}, {g['niter']} "
+              f"iterations, pobj {g['pobj']!r}; unsharded {it_s}, {fs!r}")
+    a, b = (r["schur"]["state"] for r in ranks)
+    differ = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    check(not differ, f"12c: the ranks' final states differ in {differ}")
+    g = ranks[0]["schur"]
+    largest, schur, attempts = collective_signature(g)
+    check(largest <= n0 * n0 and schur == attempts,
+          f"12c: largest collective {largest} elements (n0² = {n0 * n0}), "
+          f"{schur} n0×n0 all-reduces for {attempts} factorizations")
+    log(f"  two processes over gloo on the card (host-staged): "
+        f"{g['niter']} iterations on both ranks, pobj {g['pobj']!r} (rel "
+        f"{abs(g['pobj'] - fs) / max(1.0, abs(fs)):.3e} to 12a), final "
+        f"states equal bit for bit; solve wall {g['wall']:.4f} s, "
+        f"{g['wall'] / g['niter'] * 1e3:.3f} ms an iteration; largest "
+        f"collective {largest} elements, {schur} n0×n0 all-reduces for "
+        f"{attempts} factorizations; rank 0: "
+        f"{comm_line(g['counts'], g['nbytes'], g['niter'])}")
+
+    # -- 12d: shard_batch of the slice over the same two processes ---------
+    # Each rank's lanes are held to the same lanes solved as one batch
+    # here, bit for bit. Phase 4's per-lane counts are not the bar: on the
+    # card a lane's rounding depends on the batch's size (the slice's
+    # first 1024 lanes as a batch of their own take other iteration
+    # counts than inside the 2048).
+    sl = [r["slice"] for r in ranks]
+    be4 = SmallK1Backend(refinement_steps=1)
+    n0_, n1_ = lane_split(len(raws), 2)
+    alone = [batched_hsd_solve(be4, opts4, type(dats)(*(x[lo:lo + n]
+                                                       for x in dats)))
+             for lo, n in ((0, n0_), (n0_, n1_))]
+    it_alone = np.concatenate([o.niter.cpu().numpy() for o in alone])
+    p_alone = np.concatenate([o.pobj.cpu().numpy() for o in alone])
+    it, pobj = sl[0]["niter"], sl[0]["pobj"]
+    check(all(np.array_equal(x["niter"], it) and np.array_equal(x["pobj"],
+                                                                pobj)
+              for x in sl), "12d: the ranks gathered different states")
+    check(np.array_equal(it, it_alone) and np.array_equal(pobj, p_alone),
+          f"12d: {int((it != it_alone).sum())} lanes' iterations and "
+          f"{int((pobj != p_alone).sum())} objectives differ from the same "
+          f"lanes solved as one batch in this process")
+    n_opt, worst = check_slice(
+        raws, SimpleNamespace(status=torch.as_tensor(sl[0]["status"]),
+                              pobj=torch.as_tensor(pobj)), refs_slice, "12d")
+    check(all(x["chol_launches"] > 0 for x in sl),
+          f"12d: the chol-inv kernel never launched on a rank "
+          f"({[x['chol_launches'] for x in sl]})")
+    for x in sl:
+        count.total["chol_inv"] += x["chol_launches"]
+        count.shapes["chol"] |= {tuple(v) for v in x["chol_shapes"]}
+    log(f"[12d] shard_batch of the {len(raws)} slice LPs over 2 processes "
+        f"({lane_split(len(raws), 2)} lanes), pallas-small, gathered: "
+        f"{n_opt}/{len(raws)} OPTIMAL, worst rel obj err vs HiGHS (128 "
+        f"lanes) {worst:.3e}; iterations and objectives equal bit for bit "
+        f"to each rank's lanes solved as one batch here; mean iterations "
+        f"{it.mean():.4f} (phase 4, one batch of {len(raws)}: "
+        f"{iters4.mean():.4f}; {int((it != iters4).sum())} lanes with "
+        f"another count); warm solve walls "
+        f"{[round(x['wall'], 4) for x in sl]} s (phase 4, all lanes in one "
+        f"process: {wall4:.4f} s); chol-inv launches "
+        f"{[x['chol_launches'] for x in sl]}; the 2-process job took "
+        f"{wall_job:.1f} s")
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s; {card}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
@@ -2123,6 +2379,8 @@ def main(argv=None):
     check(res["high"] <= 10 * res["highest"], f"'high' residual "
           f"{res['high']:.3e} over 10x 'highest''s {res['highest']:.3e}")
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+    phase_distributed(device, count, card, (raws, dats, opts, refs_slice),
+                      iters, wall, args.profile)
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

@@ -142,18 +142,16 @@ def test_registry_names():
         "banded", "car", "cg", "cr", "craig", "craigmr", "dense",
         "dense-ldl", "dense-mixed", "dense-pallas", "extended",
         "extended-dd", "lsmr", "lsqr", "minares", "minres", "minres-qlp",
-        "pallas-small", "sparse", "sparse-ldl", "sparse-smw", "sqd-minres",
-        "symmlq", "tricg"]
+        "pallas-small", "schur", "sparse", "sparse-ldl", "sparse-smw",
+        "sqd-minres", "symmlq", "tricg"]
     assert SmallK1Backend.name == "pallas-small"
     assert make_backend().name == "dense"
     assert make_backend(None, "K2").name == "dense-ldl"
     with pytest.raises(ValueError):
         make_backend("dense", "K2")
     assert make_backend("sparse-ldl").name == "sparse-ldl"
-    assert kkt.UNPORTED == {
-        "schur": "ROADMAP queue 1, item 10 (distributed Schur path)"}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_backend("schur")
+    assert kkt.UNPORTED == {}
+    assert make_backend("schur").name == "schur"
     assert make_backend("cg").name == "cg"
 
 

@@ -116,14 +116,17 @@ def small_staircase(m, seed=0):
     {"KKT_Backend": "schur"},
 ], ids=["schur"])
 def test_unported_routes_raise_before_device_work(params):
-    """device="cuda" on a machine without CUDA: reaching any device work
-    would raise something else than NotImplementedError."""
+    """``"schur"`` solves block-angular data only, so a Model refuses it
+    with a TypeError naming BlockAngularLPData; device="cuda" on a machine
+    without CUDA: reaching any device work would raise something else.
+    The reference raises AttributeError later, from the backend's
+    setup_data (ROADMAP queue 3)."""
     m = tlt.Model(device="cuda")
     m.pbdata = tlt.read_mps(str(DATA / "lp_freevars.mps"))
     m.params.Presolve.Level = 0
     for k, v in params.items():
         tlt.set_parameter(m, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="BlockAngularLPData"):
         m.optimize()
 
 

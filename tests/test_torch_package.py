@@ -30,7 +30,8 @@ def test_import_does_not_pull_in_jax():
             "tulip_tpu_torch.ipm.sparse_data, tulip_tpu_torch.kkt.splitting, "
             "tulip_tpu_torch.kkt.dense_ldl, tulip_tpu_torch.kkt.extended, "
             "tulip_tpu_torch.kkt.mixed, tulip_tpu_torch.kkt.testkit, "
-            "tulip_tpu_torch.ops.doubledouble; "
+            "tulip_tpu_torch.ops.doubledouble, tulip_tpu_torch.kkt.schur, "
+            "tulip_tpu_torch.parallel, tulip_tpu_torch.parallel.dryrun; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'tulip_tpu.'))"
             " or m == 'tulip_tpu'); "
@@ -86,8 +87,8 @@ def test_host_function_is_verbatim_copy(module, name):
 
 
 # Top-level names of the JAX package that the port does not have yet, each
-# with the ROADMAP item that brings it.
-NOT_YET = {"parallel": "ROADMAP queue 1, item 10 (distributed Schur path)"}
+# with the ROADMAP item that brings it: none.
+NOT_YET = {}
 
 
 def test_version_is_the_references():

@@ -19,10 +19,12 @@ there. So far it covers:
   ``"sqd-minres"``, ``"lsmr"``, ...);
 - many LPs: ``batch_linprog`` (HSD or MPC), ``ipm.batched_hsd_solve``,
   ``ipm.batched_mpc_solve`` and the warm-started
-  ``ipm.batched_hsd_resolve``.
-
-The distributed Schur path is not ported yet (naming ``"schur"`` raises
-``NotImplementedError`` with its ROADMAP item).
+  ``ipm.batched_hsd_resolve``;
+- many processes (``parallel``, on ``torch.distributed``): block-angular
+  two-stage LPs through the distributed Schur-complement backend
+  ``"schur"`` with their scenarios sharded (``parallel.shard_scenarios``),
+  and a batch split over processes (``ipm.batch.shard_batch``,
+  ``gather_lanes``).
 
 Three hand-written CUDA kernels serve the f32 paths on the card:
 ``csrc/chol_inv.cu`` (the factorization of ``"pallas-small"``, one or
@@ -47,6 +49,7 @@ from .io import read_mps  # noqa: E402
 from .kkt import make_backend  # noqa: E402
 from .linprog import LinprogResult, batch_linprog, linprog  # noqa: E402
 from .model import Model  # noqa: E402
+from . import parallel  # noqa: E402
 from .params import (IPMOptions, KKTOptions, Parameters,  # noqa: E402
                      PresolveOptions)
 from .problem import ProblemData  # noqa: E402

@@ -1,9 +1,10 @@
 """Carry LP data and solver state across from the JAX package.
 
 The JAX package's pytrees (``LPData``, ``HSDState`` with a ``DenseK1State``
-in its ``kkt`` field, ``SparseLPData`` and the other KKT states) are
-given here as dicts of numpy arrays, nested the same way, keyed by field
-name; batched ones batch-first as ``jax.vmap`` leaves them. This
+in its ``kkt`` field, ``SparseLPData``, ``BlockAngularLPData`` and the
+other KKT states) are given here as dicts of numpy arrays, nested the
+same way, keyed by field name; batched ones batch-first as ``jax.vmap``
+leaves them. This
 module imports no JAX: the caller flattens the pytree to numpy (e.g.
 ``{k: np.asarray(v) for k, v in tree._asdict().items()}`` per level).
 """
@@ -25,15 +26,18 @@ from .kkt.dense_ldl import DenseK2State
 from .kkt.extended import DDK1State
 from .kkt.levels import LevelSeg
 from .kkt.mixed import MixedK1State
+from .kkt.schur import SchurState
 from .kkt.sparse import SparseK1LevelState, SparseK1State
 from .kkt.sparse_ldl import SparseK2LevelState, SparseK2State
 from .kkt.splitting import SplitK1State
+from .parallel.block_angular import BlockAngularLPData
+from .parallel.comm import Comm
 
 _INT_FIELDS = ("niter", "status", "primal_status", "dual_status")
 _STRUCTURED = {cls.__name__: cls for cls in (
     SparseK1LevelState, SparseK1State, BandedK1State, SplitK1State,
     DenseK2State, SparseK2State, SparseK2LevelState, MixedK1State,
-    DDK1State)}
+    DDK1State, SchurState)}
 # Fields of the structured states and of SparseLPData that index (the
 # plan), not per-LP values.
 _INDEX_FIELDS = ("perm", "sup_idx", "sup_tile", "col_ids", "col_blkrows",
@@ -79,10 +83,12 @@ def hsd_state_from_numpy(d: Mapping, *, device="cuda",
 
 def hsd_state_to_numpy(state: HSDState) -> dict:
     """The inverse of :func:`hsd_state_from_numpy`: nested dicts of numpy
-    arrays, one level per NamedTuple."""
+    arrays, one level per NamedTuple. A Schur state's ``comm`` (its
+    process group, not data) is left out."""
     def conv(v):
         if isinstance(v, tuple):
-            return {f: conv(x) for f, x in zip(v._fields, v)}
+            return {f: conv(x) for f, x in zip(v._fields, v)
+                    if not isinstance(x, Comm)}
         return v.detach().cpu().numpy()
 
     return conv(state)
@@ -120,22 +126,33 @@ def sparse_lp_data_from_numpy(d: Mapping, *, device="cuda",
     return SparseLPData(**_lane_fields(SparseLPData, d, device, dtype))
 
 
+def block_angular_from_numpy(d: Mapping, *, device="cuda",
+                             dtype=torch.float64) -> BlockAngularLPData:
+    """BlockAngularLPData of one LP from the JAX package's, as a dict of
+    its fields as numpy arrays (no lane axis); every field gains the lane
+    axis of 1, and the data is unsharded (``Comm()``)."""
+    return BlockAngularLPData(**{
+        f: _tensor(np.asarray(d[f])[None], device, dtype)
+        for f in BlockAngularLPData._fields if f != "comm"}, comm=Comm())
+
+
 def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
                                 dtype=torch.float64):
     """A KKT state of this package from the JAX package's, given as the
     name of its class (``"SparseK1LevelState"``, ``"SparseK1State"``,
     ``"BandedK1State"``, ``"SplitK1State"``, ``"DenseK2State"``,
-    ``"SparseK2State"``, ``"SparseK2LevelState"``, ``"MixedK1State"`` or
-    ``"DDK1State"``) and a dict of its fields as numpy arrays. A level
-    state's ``d["segs"]`` is a sequence of dicts of ``LevelSeg`` fields: its
-    plan's level schedule.
+    ``"SparseK2State"``, ``"SparseK2LevelState"``, ``"MixedK1State"``,
+    ``"DDK1State"`` or ``"SchurState"``) and a dict of its fields as numpy
+    arrays. A level state's ``d["segs"]`` is a sequence of dicts of
+    ``LevelSeg`` fields: its plan's level schedule.
 
     Index fields become int64 tensors with no lane axis; every other field
     gains the leading lane axis of 1 that this package's states carry, in
     ``dtype`` (the f32 factor of a ``MixedK1State`` stays float32). A
     ``SplitK1State``'s ``d["inner"]`` is the dict of its tiled state (a
     level state when it has ``"segs"``), and its ``d["A"]`` is either the
-    dense A or the dict of a ``SparseLPData``.
+    dense A or the dict of a ``SparseLPData``. A ``SchurState`` is
+    unsharded (``comm`` is a ``Comm()``).
     """
     cls = _STRUCTURED[kind]
     nested = {f: (lambda x: _tensor(np.asarray(x)[None], device,
@@ -154,4 +171,7 @@ def structured_state_from_numpy(kind: str, d: Mapping, *, device="cuda",
             return _tensor(np.asarray(x)[None], device, dtype)
 
         nested = {"inner": inner, "A": full_A}
+    if cls is SchurState:
+        d = {**d, "comm": None}
+        nested = {"comm": lambda _: Comm()}
     return cls(**_lane_fields(cls, d, device, dtype, nested))

@@ -5,8 +5,9 @@ solve; here every tensor already carries the lane axis, and
 :func:`batched_hsd_solve`, :func:`batched_hsd_resolve` and
 :func:`batched_mpc_solve` run the one host loop of :func:`.hsd.solve`,
 which stops once no lane is UNKNOWN, one host sync per iteration.
-``shard_batch`` (placing a batch across cards) is not ported yet: ROADMAP
-queue 1, item 10.
+:func:`shard_batch` splits a batch over the processes of a group and
+:func:`gather_lanes` puts the final states back together; the solve in
+between needs no collective (its lanes are independent).
 
 Heterogeneous instances are padded to a common (m, n) envelope: padded
 columns get c = 0 and bounds l = u = 0 (both flags on), pinning them to
@@ -16,7 +17,7 @@ keeps nonsingular.
 
 from __future__ import annotations
 
-from typing import List
+from typing import TYPE_CHECKING, List
 
 import numpy as np
 import torch
@@ -25,6 +26,9 @@ from .data import LPData
 from .hsd import HSDOptions, HSDState, solve
 from .mpc import MPCOptions, init_state_mpc, mpc_iteration
 from .warmstart import warm_state
+
+if TYPE_CHECKING:
+    from ..parallel.comm import Comm
 
 
 def pad_lp(dat: LPData, m_pad: int, n_pad: int) -> LPData:
@@ -129,3 +133,43 @@ def batched_mpc_solve(backend, opts: MPCOptions, dats: LPData) -> HSDState:
     """Batched Mehrotra predictor-corrector solves."""
     return solve(backend, opts, dats, init=init_state_mpc,
                  iteration=mpc_iteration, algo="MPC")
+
+
+def lane_split(B: int, size: int) -> List[int]:
+    """Lanes of each of ``size`` ranks for a batch of ``B``: contiguous,
+    the first ``B % size`` ranks one more (``numpy.array_split``'s)."""
+    return [B // size + (r < B % size) for r in range(size)]
+
+
+def shard_batch(dats, comm: Comm):
+    """This rank's contiguous share of the lanes of ``dats`` (any LP data
+    NamedTuple with a leading lane axis on its tensors; other fields pass
+    through). Uneven splits are allowed (:func:`lane_split`). The
+    counterpart of ``tulip_tpu/ipm/batch.py:shard_batch``, whose sharded
+    batched solve partitions with no collectives: each rank solves its
+    lanes alone."""
+    counts = lane_split(dats.b.shape[0], comm.size)
+    lo = sum(counts[:comm.rank])
+    hi = lo + counts[comm.rank]
+    return type(dats)(*(x[lo:hi] if torch.is_tensor(x) else x
+                        for x in dats))
+
+
+def gather_lanes(state: HSDState, comm: Comm) -> HSDState:
+    """The whole batch's state on every rank, lanes in order, from each
+    rank's state of its :func:`shard_batch` share. Every tensor of the
+    state must carry the lane axis first (the states of the dense K1
+    backends do); other leaves pass through from this rank. One gather
+    for the lane counts, then one for each tensor."""
+    counts = comm.all_gather_blocks(
+        torch.tensor([state.niter.shape[0]], device=state.niter.device),
+        0).tolist()
+    return _map(state, lambda x: comm.all_gather_blocks(x, 0, counts)
+                if torch.is_tensor(x) else x)
+
+
+def _map(tree, fn):
+    """``fn`` applied to every leaf of nested NamedTuples."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map(x, fn) for x in tree))
+    return fn(tree)

@@ -12,9 +12,9 @@ flag that the IPM's regularization ladder branches on.
 
 The registry uses the reference's names, so ``Parameters.KKT.Backend``
 means the same backend in both packages. Every name the reference
-registers is ported except ``"schur"``, which raises
-``NotImplementedError`` naming the ROADMAP item that will port it; it
-never falls back to another backend.
+registers is ported; ``UNPORTED`` is the place for a name that is not
+(``make_backend`` raises ``NotImplementedError`` naming its ROADMAP item,
+and never falls back to another backend).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .krylov import (CarK1Backend, CgK1Backend, CraigK1Backend,
                      MinresQlpK2Backend, SqdMinresK2Backend, SymmlqK2Backend,
                      TricgK2Backend)
 from .mixed import MixedK1Backend
+from .schur import SchurK1Backend, SchurState
 from .small_k1 import SmallK1Backend
 from .sparse import SparseK1Backend
 from .sparse_ldl import SparseK2Backend
@@ -41,11 +42,9 @@ from .splitting import SplitK1Backend
 
 _REGISTRY: Dict[str, Type[KKTBackend]] = {}
 
-# The reference's other registered backends, each with the ROADMAP item
-# that will port it.
-UNPORTED: Dict[str, str] = {
-    "schur": "ROADMAP queue 1, item 10 (distributed Schur path)",
-}
+# The reference's registered backends that the port lacks, each with the
+# ROADMAP item that will port it: none.
+UNPORTED: Dict[str, str] = {}
 
 
 def register(cls: Type[KKTBackend]) -> Type[KKTBackend]:
@@ -60,7 +59,7 @@ for _cls in (DenseK1Backend, GramK1Backend, SmallK1Backend,
              CarK1Backend, CgK1Backend, CraigK1Backend, CraigmrK1Backend,
              CrK1Backend, LsmrK1Backend, LsqrK1Backend, MinaresK2Backend,
              MinresK2Backend, MinresQlpK2Backend, SqdMinresK2Backend,
-             SymmlqK2Backend, TricgK2Backend):
+             SymmlqK2Backend, TricgK2Backend, SchurK1Backend):
     register(_cls)
 
 
@@ -96,5 +95,5 @@ __all__ = ["KKTBackend", "DenseK1Backend", "DenseK1State", "GramK1Backend",
            "CraigmrK1Backend", "CrK1Backend", "LsmrK1Backend",
            "LsqrK1Backend", "MinaresK2Backend", "MinresK2Backend",
            "MinresQlpK2Backend", "SqdMinresK2Backend", "SymmlqK2Backend",
-           "TricgK2Backend", "make_backend", "available_backends",
-           "register"]
+           "TricgK2Backend", "SchurK1Backend", "SchurState", "make_backend",
+           "available_backends", "register"]

@@ -43,6 +43,10 @@ class KKTBackend:
     # (kkt/testkit.py): the largest scale-aware relative residual on the
     # 16-decade θ sweep. None opts out (matrix-free backends).
     sweep_resid_atol = 1e-6
+    # Why the general LPData that a Model builds cannot be solved here, for
+    # a backend of structured data only (None: it can). Model raises it as
+    # a TypeError before any device work.
+    lp_data_refusal = None
 
     # -- introspection (reference: src/KKT/KKT.jl:103-121) ---------------
     def arithmetic_label(self, dtype: torch.dtype) -> str:

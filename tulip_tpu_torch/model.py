@@ -34,8 +34,9 @@ every route it takes at its defaults is ported:
 A named backend takes the dense data path, as in the reference (only
 ``None``, ``"sparse"`` and ``"sparse-smw"`` may go sparse-first); the
 Krylov family (``kkt/krylov.py``) runs with no refinement sweep by
-default. ``"schur"``, which this package has not ported, raises
-``NotImplementedError`` before any device work, naming its ROADMAP item.
+default. ``"schur"`` solves block-angular data only
+(``parallel.BlockAngularLPData`` through ``ipm.hsd_solve``), so naming
+it here raises ``TypeError`` before any device work.
 """
 
 from __future__ import annotations
@@ -314,6 +315,10 @@ class Model:
                 refinement = max(refinement, 1)
         kwargs = {"host_A": A_host} if backend_name in _HOST_SETUP else {}
         backend = make_backend(backend_name, system, refinement, **kwargs)
+        if backend.lp_data_refusal is not None:
+            # The reference fails later, in the backend's setup_data
+            # (AttributeError on LPData; ROADMAP queue 3).
+            raise TypeError(backend.lp_data_refusal)
         if params.IPM.Algorithm.upper() not in ("HSD", "MPC"):
             raise ValueError(f"Unknown IPM algorithm {params.IPM.Algorithm!r}")
         # Introspection: which linear solver ran (reference: HSD.jl:214-230).

@@ -1,0 +1,18 @@
+"""Many processes: block-angular LPs with a distributed Schur complement
+(counterpart of ``tulip_tpu/parallel``), over ``torch.distributed``
+through :class:`Comm`."""
+
+from .block_angular import (BlockAngularLPData, block_angular_to_dense,
+                            make_block_angular, pad_scenarios,
+                            shard_scenarios)
+from .comm import Comm, init_comm
+
+__all__ = [
+    "BlockAngularLPData",
+    "make_block_angular",
+    "block_angular_to_dense",
+    "pad_scenarios",
+    "shard_scenarios",
+    "Comm",
+    "init_comm",
+]
