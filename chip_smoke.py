@@ -5,7 +5,9 @@
 Phases, each of which exits non-zero on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
-   power limit (nvidia-smi), torch's and CUDA's versions;
+   power limit (nvidia-smi), torch's and CUDA's versions and whether this
+   torch offers CUDA-graph IF nodes (the device program does not use
+   them);
 2. build: compiles ``tulip_tpu_torch/csrc/chol_inv.cu``,
    ``csrc/scaled_gram.cu`` and ``csrc/fused_solve.cu`` (one nvcc each,
    started together) and the C++ host engines of ``native/``
@@ -162,16 +164,34 @@ Phases, each of which exits non-zero on a failed check:
    2048/2048 OPTIMAL and mean iterations within 0.01 of phase 4's; lanes
    whose count differs and the walls beside phase 4's. The workers'
    chol-inv launches join the main path's counts;
+13. after phase 12, the device program beside the host-driven loop:
+   phase 4's, 4b's, 8's (``batch_linprog(algorithm="MPC")``), 9's, 6's
+   (``multiperiod_lp(4096)``, f32, ``"dense-pallas"``) and 7's
+   (``multiperiod_lp(1024)``, f64 ``"dense"`` and f32 ``"pallas-small"``)
+   solves, each run through the device program (one captured CUDA graph a
+   pass, replayed; its cache cleared first, so the first call captures)
+   and with ``HostLoop=True`` in this process: every final state equal
+   bit for bit, each solve's host reads within ceil((max niter + 1) / k)
+   + 2; the warm-up, capture + instantiation and first replays' walls,
+   the median of 5 warm calls (3 for the LP at m = 4096) beside the host
+   loop's, taken in turns, and the peak device memory of both; under
+   ``--profile`` one warm call of each profiled (kernel time, kernels run,
+   idle share) and the device program's profile held to name the chol-inv,
+   fused K1 solve and scaled-Gram kernels where its pair runs them;
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
-   4-9, 11 and 12 gave the fused solve and every (B, m, instances per
+   4-9, 11-13 gave the fused solve and every (B, m, instances per
    block) they gave the chol-inv kernel, held against the plain version on
    seeded inputs of that shape with phase 3's and 3c's bars; the chol-inv
    shapes must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9, 11 and 12 (6b, 6c, 7b, 7c, 7d and 12a-12d included) are the
-main path: every kernel's launch count is reset just before each of them
-and read just after (12d's in each worker, just before and after its
-solve). The last lines are the card's name and power limit, a JSON list of
+Phases 4-9 and 11-13 (6b, 6c, 7b, 7c, 7d, 12a-12d and 13's pairs
+included) are the main path: every kernel's launch count is reset just
+before each of them and read just after (12d's in each worker, just before
+and after its solve). Solves through the backends that declare
+``device_loop`` (``"dense"``, ``"pallas-small"``, ``"dense-pallas"``) run
+as the device program (``tulip_tpu_torch/ipm/graph.py``): a kernel in its
+captured pass counts once for every replay of the pass, credited when the
+solve ends, and a capture or its warm-up counts no launch. The last lines are the card's name and power limit, a JSON list of
 the kernels with their launches, errors, times and bounds, and the JSON
 result ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
@@ -1649,6 +1669,215 @@ def phase_distributed(device, count, card, slice_run, iters4, wall4,
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the device program beside the host-driven loop
+# ---------------------------------------------------------------------------
+
+# The port's kernels as torch.profiler names them: a name containing one of
+# these strings is that kernel's.
+KERNEL_NAMES = {"chol_inv": ("chol_inv_kernel", "blocked_panel_kernel"),
+                "fused_k1_solve": ("staged_solve_kernel",
+                                   "fused_solve_kernel"),
+                "scaled_gram": ("scaled_gram_kernel",)}
+
+
+def same_state_bits(a, b):
+    """Whether two final states are equal bit for bit, leaf by leaf
+    (:func:`same_bits` on each tensor)."""
+    from tulip_tpu_torch.ipm.graph import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        same_bits(x.cpu(), y.cpu()) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def recorded(module, name, host_loop):
+    """``module.name`` (an IPM solve taking an options dataclass) wrapped:
+    every call's final state is recorded with the device program's figures
+    (``ipm.graph.LAST``, empty when the host loop ran) and the call's wall
+    (up to a sync), and with ``host_loop`` the call runs with
+    ``HostLoop=True``."""
+    import dataclasses
+
+    from tulip_tpu_torch.ipm import graph
+
+    real = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kw):
+        if host_loop:
+            args = tuple(dataclasses.replace(a, HostLoop=True)
+                         if dataclasses.is_dataclass(a)
+                         and hasattr(a, "HostLoop") else a for a in args)
+        graph.LAST.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((out, dict(graph.LAST), time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def device_twin(label, module, name, call, count, card, profile,
+                want=(), reps=5):
+    """One pair of phase 13: ``call()`` makes one or more solves through
+    ``module.name``; run it through the device program and with
+    ``HostLoop=True`` in this process. Checks every final state equal bit
+    for bit and each solve's host reads within ceil((max niter + 1) / k) +
+    2; prints the walls (the first call's warm-up, capture + instantiation
+    and first replays; the median of ``reps`` warm calls beside the host
+    loop's, taken in turns), host reads, peak device memory and, under
+    ``--profile``, kernel time, kernels run and idle share of one warm call
+    of each, and holds the profile of the device program to name each
+    kernel of ``want``."""
+    from tulip_tpu_torch.ipm import graph
+
+    def one(host_loop):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded(module, name, host_loop) as calls:
+            call()
+        torch.cuda.synchronize()
+        return calls, time.perf_counter() - t0
+
+    def peak(host_loop):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls, wall = one(host_loop)
+        return calls, wall, torch.cuda.max_memory_allocated() - base
+
+    graph.clear_device_programs()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    with count.phase() as launches:
+        first, first_wall, peak_dev = peak(False)
+        reserved = torch.cuda.memory_reserved() - reserved0
+        host, host_first_wall, peak_host = peak(True)
+        walls_dev, walls_host, replay_s, solve_dev, solve_host = \
+            [], [], [], [], []
+        for _ in range(reps):
+            calls, w = one(False)
+            check(all(same_state_bits(c[0], f[0])
+                      for c, f in zip(calls, first)),
+                  f"{label}: a warm replay differs from the first solve")
+            walls_dev.append(w)
+            replay_s.append(sum(c[1]["replay_s"] for c in calls))
+            solve_dev.append(sum(c[2] for c in calls))
+            calls, w = one(True)
+            walls_host.append(w)
+            solve_host.append(sum(c[2] for c in calls))
+    check(len(first) == len(host) > 0 and all(c[1] for c in first)
+          and not any(c[1] for c in host),
+          f"{label}: {len(first)} device-program solves, {len(host)} "
+          f"host-loop solves")
+    same = [same_state_bits(d[0], h[0]) for d, h in zip(first, host)]
+    check(all(same), f"{label}: the device program's final state differs "
+          f"from HostLoop=True's in solves {[i for i, s in enumerate(same) if not s]}")
+    syncs, bars = [], []
+    for state, fig, _ in first:
+        bar = -(-(int(state.niter.max()) + 1) // graph.K_PASSES) + 2
+        syncs.append(fig["syncs"])
+        bars.append(bar)
+        check(fig["syncs"] <= bar, f"{label}: {fig['syncs']} host reads in "
+              f"a solve, over the bar {bar}")
+    niter = np.concatenate([c[0].niter.cpu().numpy() for c in first])
+    statuses = np.concatenate([c[0].status.cpu().numpy() for c in first])
+    wd, wh = statistics.median(walls_dev), statistics.median(walls_host)
+    out = {"solves": len(first), "lanes": int(niter.size),
+           "mean_niter": float(niter.mean()), "max_niter": int(niter.max()),
+           "statuses": {int(k): int(v) for k, v in
+                        zip(*np.unique(statuses, return_counts=True))},
+           "host_reads": syncs, "read_bars": bars,
+           "warmup_s": sum(c[1]["warmup_s"] for c in first),
+           "capture_s": sum(c[1]["capture_s"] for c in first),
+           "first_replay_s": sum(c[1]["replay_s"] for c in first),
+           "first_call_s": first_wall, "first_solve_s":
+           sum(c[2] for c in first), "warm_call_s": wd,
+           "warm_solve_s": statistics.median(solve_dev),
+           "warm_replay_s": statistics.median(replay_s),
+           "host_loop_first_call_s": host_first_wall, "host_loop_call_s": wh,
+           "host_loop_solve_s": statistics.median(solve_host),
+           "peak_mb": peak_dev / 1e6, "host_loop_peak_mb": peak_host / 1e6,
+           "pool_reserved_mb": reserved / 1e6,
+           "launches_a_pass": [c[1]["launches_a_pass"] for c in first],
+           "launches": {k: v for k, v in launches.items() if v}}
+    if profile:
+        seen = set()
+        out["profile"] = profile_solve(
+            call, os.path.join(profile, f"profile_{label}_graph.txt"), wd,
+            seen)
+        out["profile_host_loop"] = profile_solve(
+            lambda: one(True), os.path.join(profile,
+                                            f"profile_{label}_host.txt"), wh)
+        for kernel in want:
+            hit = sorted(k for k in seen
+                         if any(n in k for n in KERNEL_NAMES[kernel]))
+            check(hit, f"{label}: the profile of a replay shows no {kernel} "
+                  f"kernel")
+            out.setdefault("kernels_in_replay", {})[kernel] = hit[:2]
+    log(f"[13] {label}: device program = HostLoop=True bit for bit "
+        f"({len(first)} solves, {niter.size} lanes, mean iterations "
+        f"{niter.mean():.4f}); {json.dumps(out)}; {card}")
+    return out
+
+
+def phase_device_program(device, count, card, slice_run, fused, warm_be,
+                         prev, dats2, probs, big, small, profile):
+    """Phase 13: each pair runs phase 4's, 4b's, 8's, 9's, 6's and 7's
+    inputs through the device program and with ``HostLoop=True``
+    (:func:`device_twin`)."""
+    import importlib
+
+    from tulip_tpu_torch import batch_linprog
+    from tulip_tpu_torch.ipm import batch as tbatch
+    from tulip_tpu_torch.kkt import SmallK1Backend
+
+    # The package exports a function named like this module.
+    tmodel = importlib.import_module("tulip_tpu_torch.model")
+    raws, dats, opts = slice_run
+    t13 = time.perf_counter()
+    res = {}
+    small_be = SmallK1Backend(refinement_steps=1)
+    res["13a"] = device_twin(
+        "13a_slice", tbatch, "solve",
+        lambda: tbatch.batched_hsd_solve(small_be, opts, dats), count, card,
+        profile, want=("chol_inv",))
+    res["13b"] = device_twin(
+        "13b_slice_fused", tbatch, "solve",
+        lambda: tbatch.batched_hsd_solve(fused, opts, dats), count, card,
+        profile, want=("chol_inv", "fused_k1_solve"))
+    res["13c"] = device_twin(
+        "13c_entry_mpc", tbatch, "solve",
+        lambda: batch_linprog(probs, algorithm="MPC", device=device), count,
+        card, profile,
+        want=("chol_inv",))
+    res["13d"] = device_twin(
+        "13d_warm_resolve", tbatch, "solve",
+        lambda: tbatch.batched_hsd_resolve(warm_be, opts, dats2, prev),
+        count, card, profile, want=("chol_inv", "fused_k1_solve"))
+    res["13e"] = device_twin(
+        "13e_single_lp_4096", tmodel, "hsd_solve",
+        lambda: solve_model(staircase_model(big, device, "float32",
+                                            "dense-pallas")),
+        count, card, profile, want=("scaled_gram",), reps=3)
+    res["13f"] = device_twin(
+        "13f_single_lp_1024", tmodel, "hsd_solve",
+        lambda: (solve_model(staircase_model(small, device, "float64")),
+                 solve_model(staircase_model(small, device, "float32"))),
+        count, card, profile, want=("chol_inv",))
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s; {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
@@ -1752,12 +1981,13 @@ def check_entry(probs, res, refs=None, statuses=None, what="entry"):
     return worst
 
 
-def profile_solve(solve, path, wall_s):
+def profile_solve(solve, path, wall_s, seen=None):
     """torch.profiler table of one ``solve`` into ``path``; returns the
-    summed kernel time in ms and the count of kernel launches. The
-    profiled run's own wall is inflated by the profiler, so the idle share
-    is taken against ``wall_s``, the median unprofiled wall of the same
-    solve."""
+    summed kernel time in ms and the count of kernel launches (kernels run
+    inside a CUDA graph's replay included), and adds the kernels' names to
+    the set ``seen`` when one is given. The profiled run's own wall is
+    inflated by the profiler, so the idle share is taken against
+    ``wall_s``, the median unprofiled wall of the same solve."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1770,6 +2000,8 @@ def profile_solve(solve, path, wall_s):
     busy_ms = sum(e.self_device_time_total for e in ka
                   if e.device_type == DeviceType.CUDA) / 1e3
     n_kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+    if seen is not None:
+        seen.update(e.key for e in ka if e.device_type == DeviceType.CUDA)
     summary = (f"kernel time {busy_ms:.3f} ms in {n_kernels} kernel "
                f"launches; unprofiled wall {wall_s * 1e3:.3f} ms; device "
                f"idle share {1 - busy_ms / (wall_s * 1e3):.4f}")
@@ -1789,7 +2021,10 @@ COUNTERS = {"chol_inv": ("chol", "KERNEL_LAUNCHES"),
 
 class Launches:
     """Kernel launch counts of the main path: :meth:`phase` sets every
-    count to 0 just before a phase and adds them to the totals just after."""
+    count to 0 just before a phase and adds them to the totals just after.
+    The counts are launches that ran (a node of a device program's pass
+    once for every replay); the nodes captured into device programs are
+    reported apart, as ``captured_nodes``, and count in no total."""
 
     def __init__(self):
         from tulip_tpu_torch.ops import chol, gram, solve
@@ -1808,6 +2043,8 @@ class Launches:
             setattr(self.mods[mod], attr, 0)
         self.mods["solve"].STREAMED_LAUNCHES = 0
         self.mods["solve"].BULK_LAUNCHES = 0
+        for mod in self.mods.values():
+            mod.CAPTURED_LAUNCHES = 0
         for mod in self.shapes:
             self.mods[mod].SHAPES.clear()
         got = {}
@@ -1820,6 +2057,9 @@ class Launches:
         self.streamed += got["streamed"]
         got["bulk"] = self.mods["solve"].BULK_LAUNCHES
         self.bulk += got["bulk"]
+        # Nodes recorded into device programs: not launches, not counted.
+        got["captured_nodes"] = sum(m.CAPTURED_LAUNCHES
+                                    for m in self.mods.values())
         for mod, seen in self.shapes.items():
             seen |= self.mods[mod].SHAPES
 
@@ -1857,7 +2097,9 @@ def main(argv=None):
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     check(smi.returncode == 0 and card, f"nvidia-smi failed: {smi.stderr}")
     log(f"[1] device: {torch.cuda.get_device_name(0)}; torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}; {card}")
+        f"{torch.__version__}, CUDA {torch.version.cuda}; {card}; CUDA-graph "
+        f"IF nodes in this torch: "
+        f"{hasattr(torch._C._CUDAGraph, 'begin_capture_to_if_node')}")
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2381,6 +2623,9 @@ def main(argv=None):
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     phase_distributed(device, count, card, (raws, dats, opts, refs_slice),
                       iters, wall, args.profile)
+    phase_device_program(device, count, card, (raws, dats, opts), fused,
+                         warm_be, out_f, dats2, probs, big, small,
+                         args.profile)
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

@@ -751,3 +751,46 @@ def test_tf32x3_gemm_on_card_keeps_f32_digits(cuda):
     e = {k: v.abs().max().item() for k, v in err.items()}
     assert e["tf32x3"] <= 8 * e["ieee"], e
     assert e["tf32"] >= 100 * e["ieee"], e
+
+
+def test_device_program_replay_equals_the_host_loop(cuda):
+    """The device program on the card (one captured CUDA graph a pass,
+    replayed) against ``HostLoop=True`` on 64 random 48×96 LPs in f32
+    through ``SmallK1Backend``: the final states equal bit for bit; the
+    chol-inv kernel is a node of the pass, credited once a replay; a
+    second solve replays the cached graph to the same bits."""
+    from tulip_tpu_torch.ipm import graph
+    from tulip_tpu_torch.ipm.batch import batched_hsd_solve, stack_lps_host
+    from tulip_tpu_torch.ipm.hsd import HSDOptions
+    from tulip_tpu_torch.kkt import SmallK1Backend
+
+    rng = np.random.default_rng(10)
+    raws = []
+    for _ in range(64):
+        A = rng.standard_normal((48, 96))
+        u = rng.uniform(1.0, 4.0, 96)
+        b = A @ (u * rng.uniform(0.2, 0.8, 96))
+        raws.append((A, b, rng.standard_normal(96), 0.0, np.zeros(96), u))
+    dats = stack_lps_host(raws, device=cuda, dtype=torch.float32)
+    tol = dict(TolerancePFeas=3e-4, ToleranceDFeas=3e-4, ToleranceRGap=3e-4,
+               ToleranceIFeas=3e-4, PRegMin=1e-6, DRegMin=1e-6)
+    be = SmallK1Backend(refinement_steps=1)
+    graph.clear_device_programs()
+    host = batched_hsd_solve(be, HSDOptions(HostLoop=True, **tol), dats)
+    captured, launched = chol.CAPTURED_LAUNCHES, chol.KERNEL_LAUNCHES
+    dev = batched_hsd_solve(be, HSDOptions(**tol), dats)
+    torch.cuda.synchronize()
+    assert graph.LAST["built"]
+    per_pass = chol.CAPTURED_LAUNCHES - captured
+    assert per_pass == graph.LAST["launches_a_pass"]["chol"] > 0
+    assert chol.KERNEL_LAUNCHES - launched == per_pass * graph.LAST["passes"]
+    again = batched_hsd_solve(be, HSDOptions(**tol), dats)
+    assert not graph.LAST["built"]
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for a, b, c in zip(*(graph.leaves(s) for s in (dev, host, again))):
+        if torch.is_tensor(a):
+            assert torch.equal(bits(a), bits(b))
+            assert torch.equal(bits(a), bits(c))

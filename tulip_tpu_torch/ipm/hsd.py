@@ -17,8 +17,19 @@ per-lane masks:
 - the iteration loop (:func:`solve`): a lane that has terminated keeps
   its whole state.
 
-Each loop asks the device whether any lane is still active, one host sync
-per loop pass.
+:func:`solve` runs the loop one of two ways, as the reference's
+``hsd_solve`` does (``tulip_tpu/ipm/hsd.py:587-595``):
+
+- the device program (:func:`hsd_solve_device`, :mod:`.graph`): one
+  captured CUDA graph a pass, replayed with one host read a pass; the two
+  inner loops run their bound of trips, masked (3 bumps, CorrectionLimit
+  corrections). It is taken when nothing needs the host between passes
+  (``OutputLevel == 0``, no ``log_fn``, no finite ``TimeLimit``,
+  ``HostLoop`` off) and the backend declares ``device_loop``;
+- the host-driven loop: every loop asks the device whether any lane is
+  still active, one host sync a pass, a bump and a correction.
+
+Both compute the same state, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,12 +38,14 @@ import contextlib
 import dataclasses
 import time
 from functools import partial
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..status import SolutionStatus, TerminationStatus
+from . import graph
 from .data import LPData, matvec, rmatvec
+from .graph import bounded_while
 from .point import (Point, Residuals, compute_residuals, dot, dual_objective,
                     inf_norm, num_finite_bounds, primal_objective,
                     starting_point, update_mu)
@@ -59,6 +72,12 @@ class HSDOptions:
     ``OutputLevel > 0`` (an iteration log) and a finite ``TimeLimit``
     apply to one LP, a batch of one; for more lanes the solve raises
     ``ValueError``, as the reference's batched path has neither.
+
+    ``HostLoop`` (the reference's field, ``tulip_tpu/ipm/hsd.py:97``)
+    keeps the solve on the host-driven loop even when the device program
+    could run it (:func:`solve`). The reference sets it to work around an
+    XLA:TPU compiler fault; here it selects the loop that syncs between
+    passes, with the same result.
     """
 
     TolerancePFeas: float = 1.4901161193847656e-08
@@ -80,6 +99,7 @@ class HSDOptions:
     # taken, keeps full accuracy).
     FastPredictor: bool = False
     FastCorrections: bool = False
+    HostLoop: bool = False
 
 
 class HSDState(NamedTuple):
@@ -307,23 +327,25 @@ def factor_with_bumps(backend, kkt, theta_inv, regP, regD, regG=None):
     """Factorization with up to 3 ×100 regularization bumps on failure
     (step.jl:34-51; MPC: MPC/step.jl:34-51). Only lanes that failed retry,
     each keeping its own regularization, as under the reference's vmapped
-    while_loop. ``regG`` (HSD only) is bumped with them. Returns (kkt,
-    regP, regD, regG, per-lane ok)."""
+    while_loop (``bump_cond``/``bump_body``, ``tulip_tpu/ipm/hsd.py:
+    325-339``). ``regG`` (HSD only) is bumped with them. The host-driven
+    loop tests for a failed lane before each bump; the device program
+    makes all 3, masked (:func:`.graph.bounded_while`). Returns (kkt, regP,
+    regD, regG, per-lane ok)."""
     kkt, ok = backend.update(kkt, theta_inv, regP, regD)
-    for _ in range(3):
-        retry = ~ok
-        if not bool(retry.any()):
-            break
-        rp = regP * 100.0
-        rd = regD * 100.0
-        kkt_b, ok_b = backend.update(kkt, theta_inv, rp, rd)
-        kkt = tree_where(retry, kkt_b, kkt)
-        regP = tree_where(retry, rp, regP)
-        regD = tree_where(retry, rd, regD)
-        if regG is not None:
-            regG = torch.where(retry, regG * 100.0, regG)
-        ok = torch.where(retry, ok_b, ok)
-    return kkt, regP, regD, regG, ok
+
+    def bump(c, retry):
+        kkt, rp, rd, rg, ok = c
+        rp_b = rp * 100.0
+        rd_b = rd * 100.0
+        kkt_b, ok_b = backend.update(kkt, theta_inv, rp_b, rd_b)
+        return (tree_where(retry, kkt_b, kkt), tree_where(retry, rp_b, rp),
+                tree_where(retry, rd_b, rd),
+                None if rg is None else torch.where(retry, rg * 100.0, rg),
+                torch.where(retry, ok_b, ok))
+
+    return bounded_while(lambda c: ~c[4], bump, (kkt, regP, regD, regG, ok),
+                         3)
 
 
 def compute_step(backend, opts: HSDOptions, dat: LPData, state: HSDState,
@@ -390,20 +412,24 @@ def compute_step(backend, opts: HSDOptions, dat: LPData, state: HSDState,
 
     # Extra centrality corrections (step.jl:103-136), per lane: a lane
     # stops at CorrectionLimit, at a near-full step, or once a correction
-    # failed to grow its step enough.
-    ncor = torch.zeros_like(state.niter)
-    done = torch.zeros_like(alpha, dtype=torch.bool)
-    while True:
-        active = (ncor < opts.CorrectionLimit) & (alpha < 0.999) & ~done
-        if not bool(active.any()):
-            break
+    # failed to grow its step enough (``corr_cond``/``corr_body``,
+    # ``tulip_tpu/ipm/hsd.py:385-400``). The loop ends within
+    # CorrectionLimit trips: a lane still active at a trip was active at
+    # every earlier one, and each counted it.
+    def correct(c, active):
+        delta, alpha, ncor, done = c
         dc, ac = _higher_corrector(dat, opts, pt, kkt_solve_corr, aux, gamma,
                                    delta, alpha)
         use = active & (ac > alpha)
-        delta = tree_where(use, dc, delta)
-        done = torch.where(active, ac < 1.1 * alpha, done)
-        alpha = torch.where(use, ac, alpha)
-        ncor = ncor + active.to(ncor.dtype)
+        return (tree_where(use, dc, delta), torch.where(use, ac, alpha),
+                ncor + active.to(ncor.dtype),
+                torch.where(active, ac < 1.1 * alpha, done))
+
+    delta, alpha, _, _ = bounded_while(
+        lambda c: (c[2] < opts.CorrectionLimit) & (c[1] < 0.999) & ~c[3],
+        correct, (delta, alpha, torch.zeros_like(state.niter),
+                  torch.zeros_like(alpha, dtype=torch.bool)),
+        opts.CorrectionLimit)
 
     # Damped update (step.jl:139-148).
     alpha = alpha * opts.StepDampFactor
@@ -558,16 +584,23 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
     """Start every lane with ``init(dat, backend)`` and run ``iteration``
     until no lane is UNKNOWN. A lane that has terminated keeps its state,
     as a lane of ``lax.while_loop`` under vmap does. Terminates: every lane
-    reaches a status by IterationsLimit. For one LP, the same loop prints
-    the iteration log and checks the wall-clock limit between passes
-    (reference: ``tulip_tpu/ipm/hsd.py:597-649``, HSD.jl:203-350).
+    reaches a status by IterationsLimit.
+
+    Routing as the reference's ``hsd_solve`` / ``mpc_solve``
+    (``tulip_tpu/ipm/hsd.py:587-595``, ``mpc.py:451-458``): with
+    ``OutputLevel == 0``, no ``log_fn``, an infinite ``TimeLimit`` and
+    ``HostLoop`` off, a backend that declares ``device_loop`` solves
+    through the device program (:func:`device_solve`); otherwise the
+    host-driven loop runs, which for one LP prints the iteration log and
+    checks the wall-clock limit between passes (``tulip_tpu/ipm/hsd.py:
+    597-649``, HSD.jl:203-350). ``init`` runs eagerly either way, as in
+    the reference.
 
     The defaults are the HSD method's (:func:`init_state`, honouring
     ``opts.MehrotraStart``, and :func:`hsd_iteration`); the MPC method and
     the warm restart pass their own, and ``algo`` names the method in the
     log. ``log_fn``, for one LP, is called with the state after every pass
-    (``tulip_tpu/ipm/hsd.py:633-634``); like ``OutputLevel > 0``, it makes
-    the loop host-driven."""
+    (``tulip_tpu/ipm/hsd.py:633-634``)."""
     if init is None:
         init = partial(init_state, mehrotra=opts.MehrotraStart)
     if iteration is None:
@@ -577,6 +610,10 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
     if host_driven and dat.b.shape[0] != 1:
         raise ValueError("OutputLevel > 0, a finite TimeLimit and log_fn "
                          "apply to one LP, not to a batch")
+    if not (host_driven or opts.HostLoop) and backend.device_loop:
+        with full_matmul_precision():
+            state = init(dat, backend)
+        return device_solve(backend, opts, dat, state, iteration)
     with full_matmul_precision():
         state = init(dat, backend)
         tstart = time.time()
@@ -605,6 +642,54 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
         print(f"Solver exited with status "
               f"{TerminationStatus(int(state.status)).name}")
     return state
+
+
+def require_device_loop(backend) -> None:
+    """Raise ``NotImplementedError`` for a backend that runs on the
+    host-driven loop only (``device_loop`` False)."""
+    if not backend.device_loop:
+        raise NotImplementedError(
+            f"KKT backend {backend.name!r} ({type(backend).__name__}) has no "
+            f"device program: it runs on the host-driven loop only (ROADMAP "
+            f"item 12, 'left'); use hsd_solve/mpc_solve or HostLoop=True")
+
+
+def device_solve(backend, opts, dat, state: HSDState,
+                 iteration=None) -> HSDState:
+    """Run ``iteration`` from ``state`` until no lane is UNKNOWN, as the
+    device program (:mod:`.graph`): one pass, the iteration masked to the
+    lanes still UNKNOWN, captured once per key (the iteration, backend,
+    options, device and the shapes of ``dat`` and ``state``, as ``jax.jit``
+    keys its static arguments) and replayed, with one host read of whether
+    any lane is UNKNOWN every :data:`.graph.K_PASSES` passes. A second
+    solve of the same key copies its inputs into the cached program's
+    static buffers and replays it. The backend must declare
+    ``device_loop``."""
+    if iteration is None:
+        iteration = hsd_iteration
+    key = (iteration, backend, opts, dat.b.device,
+           graph.signature(dat, state))
+
+    def step(d, s):
+        return tree_where(s.status == _UNKNOWN,
+                          iteration(backend, opts, d, s), s)
+
+    with full_matmul_precision():
+        return graph.run(key, dat, state, step,
+                         lambda s: (s.status == _UNKNOWN).any())
+
+
+def hsd_solve_device(backend, opts: HSDOptions, dat: LPData,
+                     state: Optional[HSDState] = None) -> HSDState:
+    """The whole HSD solve as the device program (reference:
+    ``tulip_tpu/ipm/hsd.py:564-577``, one ``lax.while_loop``), from
+    ``state`` or, when None, from :func:`init_state` run eagerly. A backend
+    without ``device_loop`` raises ``NotImplementedError``."""
+    require_device_loop(backend)
+    if state is None:
+        with full_matmul_precision():
+            state = init_state(dat, backend, mehrotra=opts.MehrotraStart)
+    return device_solve(backend, opts, dat, state, hsd_iteration)
 
 
 def _log_header(backend, dat: LPData, algo: str) -> None:

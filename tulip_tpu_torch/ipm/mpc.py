@@ -16,7 +16,8 @@ HSD (reference: MPC.jl:1-5):
 - weaker infeasibility detection (no certificate scaling by τ).
 
 :func:`mpc_solve` and ``batch.batched_mpc_solve`` run :func:`mpc_iteration`
-in the one driver loop of :func:`.hsd.solve`.
+through :func:`.hsd.solve`, on the device program or the host-driven loop
+as it routes; :func:`mpc_solve_device` is the device program alone.
 """
 
 from __future__ import annotations
@@ -24,26 +25,29 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .data import LPData, matvec, rmatvec
+from .graph import bounded_while
 from .hsd import (_DUAL_INFEASIBLE, _ITERATION_LIMIT, _NUMERICAL_PROBLEM,
                   _OPTIMAL, _PRIMAL_INFEASIBLE, _SLN_CERTIFICATE,
                   _SLN_FEASIBLE, _SLN_OPTIMAL, _SLN_UNKNOWN, _UNKNOWN,
-                  DataNorms, HSDState, _col, _data_norms, factor_with_bumps,
-                  first_match, fresh_state, solve, tree_where)
+                  DataNorms, HSDState, _col, _data_norms, device_solve,
+                  factor_with_bumps, first_match, fresh_state,
+                  full_matmul_precision, require_device_loop, solve,
+                  tree_where)
 from .point import Point, Residuals, dot, inf_norm, num_finite_bounds, \
     update_mu
 
 
 @dataclasses.dataclass(frozen=True)
 class MPCOptions:
-    """MPC options (defaults: reference src/IPM/options.jl). The
-    reference's ``HostLoop`` works around an XLA:TPU compiler fault and is
-    not ported; ``OutputLevel`` and ``TimeLimit`` apply to one LP, as in
-    :class:`~.hsd.HSDOptions`."""
+    """MPC options (defaults: reference src/IPM/options.jl).
+    ``OutputLevel`` and ``TimeLimit`` apply to one LP, and ``HostLoop``
+    (``tulip_tpu/ipm/mpc.py:69``) keeps the solve on the host-driven loop,
+    as in :class:`~.hsd.HSDOptions`."""
 
     TolerancePFeas: float = 1.4901161193847656e-08
     ToleranceDFeas: float = 1.4901161193847656e-08
@@ -60,6 +64,7 @@ class MPCOptions:
     CorrectionStepShift: float = 0.3   # δ
     CorrectionGamma: float = 0.1       # γ
     OutputLevel: int = 0
+    HostLoop: bool = False
 
 
 def mpc_residuals(dat: LPData, pt: Point):
@@ -217,12 +222,9 @@ def compute_step_mpc(backend, opts: MPCOptions, dat: LPData, state: HSDState,
     shift = opts.CorrectionStepShift
     zero_m = torch.zeros_like(pt.y)
     zero_n = torch.zeros_like(pt.x)
-    ncor = 0
-    done = torch.zeros_like(ap, dtype=torch.bool)
-    while ncor < opts.CorrectionLimit:
-        active = ~done
-        if not bool(active.any()):
-            break
+
+    def correct(c, active):
+        delta, ap, ad, done = c
         ap_ = _col(torch.clamp_max(ap + shift, 1.0))
         ad_ = _col(torch.clamp_max(ad + shift, 1.0))
         apc, adc = _col(ap), _col(ad)
@@ -250,11 +252,13 @@ def compute_step_mpc(backend, opts: MPCOptions, dat: LPData, state: HSDState,
                    tau=dc.tau, kappa=dc.kappa, mu=dc.mu)
         ap_c, ad_c = max_step_length_pd(dat, pt, dc)
         accept = active & (ap_c >= 1.01 * ap) & (ad_c >= 1.01 * ad)
-        delta = tree_where(accept, dc, delta)
-        ap = torch.where(accept, ap_c, ap)
-        ad = torch.where(accept, ad_c, ad)
-        done = done | ~accept
-        ncor += 1
+        return (tree_where(accept, dc, delta), torch.where(accept, ap_c, ap),
+                torch.where(accept, ad_c, ad), done | ~accept)
+
+    delta, ap, ad, _ = bounded_while(
+        lambda c: ~c[3], correct,
+        (delta, ap, ad, torch.zeros_like(ap, dtype=torch.bool)),
+        opts.CorrectionLimit)
 
     # Damped update with separate primal/dual lengths (step.jl:111-120).
     apc = _col(ap * opts.StepDampFactor)
@@ -365,6 +369,19 @@ def init_state_mpc(dat: LPData, backend) -> HSDState:
     pt, kkt = mpc_starting_point(dat, backend, kkt)
     state = fresh_state(dat, pt, None, kkt, regG=torch.zeros_like(dat.c0))
     return _mpc_residual_state(dat, state)
+
+
+def mpc_solve_device(backend, opts: MPCOptions, dat: LPData,
+                     state: Optional[HSDState] = None) -> HSDState:
+    """The whole MPC solve as the device program (reference:
+    ``tulip_tpu/ipm/mpc.py:435-448``), from ``state`` or, when None, from
+    :func:`init_state_mpc` run eagerly. A backend without ``device_loop``
+    raises ``NotImplementedError``."""
+    require_device_loop(backend)
+    if state is None:
+        with full_matmul_precision():
+            state = init_state_mpc(dat, backend)
+    return device_solve(backend, opts, dat, state, mpc_iteration)
 
 
 def mpc_solve(dat: LPData, backend, opts: MPCOptions,

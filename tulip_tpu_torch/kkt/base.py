@@ -47,6 +47,12 @@ class KKTBackend:
     # a backend of structured data only (None: it can). Model raises it as
     # a TypeError before any device work.
     lp_data_refusal = None
+    # Whether the IPM may run this backend as its device program
+    # (``ipm/graph.py``): one captured CUDA graph a pass. That needs an
+    # ``update`` and ``solve`` with no host read, no host-side plan that
+    # changes between calls and no collective, since a capture records the
+    # launches without running them. Backends that declare it hold to that.
+    device_loop = False
 
     # -- introspection (reference: src/KKT/KKT.jl:103-121) ---------------
     def arithmetic_label(self, dtype: torch.dtype) -> str:

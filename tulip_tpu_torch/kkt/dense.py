@@ -174,6 +174,8 @@ class DenseK1Backend(KKTBackend):
 
     name = "dense"
     systems = ("K1",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     inv_factor: bool = False
     explicit_minv: bool = False
     blocked_min: int = 4096

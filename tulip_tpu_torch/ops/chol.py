@@ -22,20 +22,28 @@ The strict upper triangle is exactly zero.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
-# Launches of the CUDA kernel since the process started (or the caller last
-# reset it), one instance per block and packed (several instances per
-# block) apart; the plain version does not count. KERNEL_LAUNCHES_BLOCKED
-# counts those of KERNEL_LAUNCHES that took the blocked path (m >
-# SHARED_MAX_M). SHAPES holds the (B, m, instances per block) of every
-# launch, so that a caller can hold the kernel against its plain version at
-# the shapes a run gave it.
+# Launches of the CUDA kernel that ran since the process started (or the
+# caller last reset them), one instance per block and packed (several
+# instances per block) apart; the plain version does not count. A launch
+# inside a device program (ipm/graph.py) counts once for every replay of its
+# pass, credited when the solve ends; CAPTURED_LAUNCHES counts the launches
+# recorded into captured graphs (nodes, not runs), and the warm-up before a
+# capture counts in neither (ipm/graph.py:count_launch).
+# KERNEL_LAUNCHES_BLOCKED counts those of KERNEL_LAUNCHES that took the
+# blocked path (m > SHARED_MAX_M). SHAPES holds the (B, m, instances per
+# block) of every launch that ran, so that a caller can hold the kernel
+# against its plain version at the shapes a run gave it.
 KERNEL_LAUNCHES = 0
 KERNEL_LAUNCHES_PACKED = 0
 KERNEL_LAUNCHES_BLOCKED = 0
+CAPTURED_LAUNCHES = 0
 SHAPES: set = set()
+
+_THIS = sys.modules[__name__]
 
 MAX_M = 1024
 # Largest m whose instance fits in one block's shared memory; above it the
@@ -58,8 +66,8 @@ def batched_cholesky_inverse_plain(K: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
-    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_PACKED, KERNEL_LAUNCHES_BLOCKED
     from .. import _build
+    from ..ipm import graph
 
     if K.dtype != torch.float32:
         raise TypeError(f"chol_inv kernel takes float32, got {K.dtype}")
@@ -107,11 +115,10 @@ def _launch(K: torch.Tensor, pack: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
     if used > 1:
-        KERNEL_LAUNCHES_PACKED += 1
+        graph.count_launch(_THIS, (B, m, used), KERNEL_LAUNCHES_PACKED=1)
     else:
-        KERNEL_LAUNCHES += 1
-        KERNEL_LAUNCHES_BLOCKED += m > SHARED_MAX_M
-    SHAPES.add((B, m, used))
+        graph.count_launch(_THIS, (B, m, used), KERNEL_LAUNCHES=1,
+                           KERNEL_LAUNCHES_BLOCKED=int(m > SHARED_MAX_M))
     return out
 
 

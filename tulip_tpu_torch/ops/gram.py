@@ -20,12 +20,19 @@ is no closer). There is no diagonal term: the caller adds Rd.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
-# Launches of the CUDA kernel since the process started (or the caller last
-# reset it); the plain version does not count.
+_THIS = sys.modules[__name__]
+
+# Launches of the CUDA kernel that ran since the process started (or the
+# caller last reset them); the plain version does not count. A launch inside
+# a device program counts once for every replay of its pass, and
+# CAPTURED_LAUNCHES counts the launches recorded into captured graphs, as in
+# ops/chol.py (ipm/graph.py:count_launch).
 KERNEL_LAUNCHES = 0
+CAPTURED_LAUNCHES = 0
 
 
 def scaled_gram_plain(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -37,8 +44,8 @@ def scaled_gram_plain(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    global KERNEL_LAUNCHES
     from .. import _build
+    from ..ipm import graph
 
     if A.dtype != torch.float32 or d.dtype != torch.float32:
         raise TypeError(f"scaled_gram kernel takes float32, got "
@@ -69,7 +76,7 @@ def _launch(A: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
              A.device.index, stream)
     if err != 0:
         raise RuntimeError(f"scaled_gram kernel launch failed: cudaError {err}")
-    KERNEL_LAUNCHES += 1
+    graph.count_launch(_THIS, None, KERNEL_LAUNCHES=1)
     return K
 
 

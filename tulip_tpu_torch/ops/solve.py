@@ -24,13 +24,19 @@ increments, never recomputed.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
 from .chol import MAX_M
 
-# Launches of the CUDA kernel since the process started (or the caller last
-# reset it); the plain version does not count. STREAMED_LAUNCHES counts the
+_THIS = sys.modules[__name__]
+
+# Launches of the CUDA kernel that ran since the process started (or the
+# caller last reset them); the plain version does not count. A launch inside
+# a device program counts once for every replay of its pass, and
+# CAPTURED_LAUNCHES counts the launches recorded into captured graphs, as in
+# ops/chol.py (ipm/graph.py:count_launch). STREAMED_LAUNCHES counts the
 # launches among them that read A and Li from device memory, because the
 # instance did not fit in shared memory, and WIDE_LAUNCHES those among the
 # latter whose n-long vectors lived in device memory too. BULK_LAUNCHES counts
@@ -39,6 +45,7 @@ from .chol import MAX_M
 # (B, m, n, refine) of every launch, so that a caller can hold the kernel
 # against its plain version at the shapes a run gave it.
 KERNEL_LAUNCHES = 0
+CAPTURED_LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 BULK_LAUNCHES = 0
@@ -78,8 +85,8 @@ def batched_fused_k1_solve_plain(A, Li, d, treg, regD, xi_p, xi_d,
 
 
 def _launch(A, Li, d, treg, regD, xi_p, xi_d, refine: int):
-    global KERNEL_LAUNCHES, STREAMED_LAUNCHES, WIDE_LAUNCHES, BULK_LAUNCHES
     from .. import _build
+    from ..ipm import graph
 
     if A.dim() != 3:
         raise ValueError(f"expected A (B, m, n), got {tuple(A.shape)}")
@@ -132,11 +139,10 @@ def _launch(A, Li, d, treg, regD, xi_p, xi_d, refine: int):
     if err != 0:
         raise RuntimeError(f"fused_k1_solve kernel launch failed: "
                            f"cudaError {err}")
-    KERNEL_LAUNCHES += 1
-    STREAMED_LAUNCHES += layout.value <= 1
-    WIDE_LAUNCHES += layout.value == 0
-    BULK_LAUNCHES += layout.value == 3
-    SHAPES.add((B, m, n, refine))
+    graph.count_launch(_THIS, (B, m, n, refine), KERNEL_LAUNCHES=1,
+                       STREAMED_LAUNCHES=int(layout.value <= 1),
+                       WIDE_LAUNCHES=int(layout.value == 0),
+                       BULK_LAUNCHES=int(layout.value == 3))
     return dx, dy
 
 
