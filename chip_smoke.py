@@ -172,24 +172,45 @@ Phases, each of which exits non-zero on a failed check:
    pass, replayed; its cache cleared first, so the first call captures)
    and with ``HostLoop=True`` in this process: every final state equal
    bit for bit, each solve's host reads within ceil((max niter + 1) / k)
-   + 2; the warm-up, capture + instantiation and first replays' walls,
+   + 2; the warm-up, capture, instantiation and first replays' walls and
+   the graph's nodes a pass,
    the median of 5 warm calls (3 for the LP at m = 4096) beside the host
    loop's, taken in turns, and the peak device memory of both; under
    ``--profile`` one warm call of each profiled (kernel time, kernels run,
    idle share) and the device program's profile held to name the chol-inv,
    fused K1 solve and scaled-Gram kernels where its pair runs them;
+14. after phase 13, the structured and precision routes beside the
+   host-driven loop: the IPM call of each solve of phases 6b (``"banded"``
+   f64, f32 and MPC, ``"sparse"``), 6c (sparse-first ``"sparse"`` and
+   ``"sparse-smw"``, dense-data ``"sparse-smw"``), 7b (``"dense-ldl"``),
+   7c (both ``"sparse-ldl"`` LPs) and 7d (``"extended"``,
+   ``"dense-mixed"``, ``"extended-dd"``), which ran as the device program
+   there, run again from one initial state with ``HostLoop=True`` twice,
+   then through a program built anew (the cache cleared) and 3 times warm:
+   statuses equal; where the two host-loop runs agree bit for bit, every
+   device-program state equal to theirs bit for bit, else iterations
+   within their range ±1 and objectives within 1e-9·max(1,|f|); one host
+   read a pass; the warm-up, capture and instantiation seconds, the
+   graph's nodes a pass, the first and the median warm solve's walls and
+   ms an iteration beside the host loop's, peak device memory of both;
+   under ``--profile``, kernel time and idle share of a warm solve and a
+   host-loop run;
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
    4-9, 11-13 gave the fused solve and every (B, m, instances per
    block) they gave the chol-inv kernel, held against the plain version on
    seeded inputs of that shape with phase 3's and 3c's bars; the chol-inv
    shapes must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 and 11-13 (6b, 6c, 7b, 7c, 7d, 12a-12d and 13's pairs
-included) are the main path: every kernel's launch count is reset just
-before each of them and read just after (12d's in each worker, just before
-and after its solve). Solves through the backends that declare
-``device_loop`` (``"dense"``, ``"pallas-small"``, ``"dense-pallas"``) run
-as the device program (``tulip_tpu_torch/ipm/graph.py``): a kernel in its
+Phases 4-9 and 11-14 (6b, 6c, 7b, 7c, 7d, 12a-12d, 13's pairs and 14's
+routes included) are the main path: every kernel's launch count is reset
+just before each of them and read just after (12d's in each worker, just
+before and after its solve). Solves through the backends that declare
+``device_loop`` (every backend but the 13 Krylov ones and ``"schur"``:
+``"dense"``, ``"pallas-small"``, ``"dense-pallas"``, ``"banded"``,
+``"sparse"``, ``"sparse-smw"``, ``"dense-ldl"``, ``"sparse-ldl"``,
+``"extended"``, ``"extended-dd"``, ``"dense-mixed"``) run as the device
+program (``tulip_tpu_torch/ipm/graph.py``) unless an iteration log is
+asked for (the CLI's runs): a kernel in its
 captured pass counts once for every replay of the pass, credited when the
 solve ends, and a capture or its warm-up counts no launch. The last lines are the card's name and power limit, a JSON list of
 the kernels with their launches, errors, times and bounds, and the JSON
@@ -198,7 +219,9 @@ torch.profiler tables of one warm slice solve (phases 4 and 4b), of the
 phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
 ``multiperiod_lp(8192)``, of phase 7b's K2 solve, of phase 7c's
 ``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)``, of phase 11a's
-cg solve at m = 4096 and of phase 12a's and 12b's solves to DIR.
+cg solve at m = 4096, of phase 12a's and 12b's solves and of a warm
+device-program solve and a host-loop run of each pair of phases 13 and
+14 to DIR.
 """
 
 from __future__ import annotations
@@ -893,12 +916,21 @@ def staircase_model(lp, device, dtype, backend=None):
 
 
 def solve_model(mod):
-    """Optimize; returns (status, objective, wall seconds)."""
+    """Optimize; returns (status, objective, wall seconds). The Model
+    keeps its IPM call (:func:`recorded`) as ``mod.smoke_ipm``, for
+    phase 14."""
+    import importlib
+
     from tulip_tpu_torch import get_attribute
 
-    t0 = time.perf_counter()
-    st = mod.optimize()
-    wall = time.perf_counter() - t0
+    # The package exports a function named like this module.
+    tmodel = importlib.import_module("tulip_tpu_torch.model")
+    with recorded(tmodel, "hsd_solve", False) as hsd_calls, \
+            recorded(tmodel, "mpc_solve", False) as mpc_calls:
+        t0 = time.perf_counter()
+        st = mod.optimize()
+        wall = time.perf_counter() - t0
+    mod.smoke_ipm = hsd_calls + mpc_calls
     return st, get_attribute(mod, "ObjectiveValue"), wall
 
 
@@ -912,8 +944,20 @@ def check_objective(what, z, ref, tol):
 def describe(mod, wall):
     t = ", ".join(f"{k} {v:.4f} s" for k, v in mod.timings.items())
     it = mod.barrier_iterations
+    fig = mod.smoke_ipm[-1][1] if getattr(mod, "smoke_ipm", None) else {}
+    if not fig:
+        how = "the host-driven loop"
+    else:
+        built = (f"built: warm-up {fig['warmup_s']:.4f} s, capture "
+                 f"{fig['capture_s']:.4f} s, instantiation "
+                 f"{fig['instantiate_s']:.4f} s" if fig["built"]
+                 else "cached")
+        how = (f"the device program ({built}; {fig['nodes_a_pass']} nodes a "
+               f"pass, {fig['passes']} passes in {fig['replay_s']:.4f} s, "
+               f"{fig['syncs']} host reads)")
     return (f"{it} iterations, wall {wall:.4f} s ({t}); "
-            f"{mod.timings['ipm'] / max(it, 1) * 1e3:.3f} ms per iteration")
+            f"{mod.timings['ipm'] / max(it, 1) * 1e3:.3f} ms per iteration; "
+            f"the IPM through {how}")
 
 
 def host_symbolic_s(mod, device):
@@ -1695,15 +1739,18 @@ def same_state_bits(a, b):
 def recorded(module, name, host_loop):
     """``module.name`` (an IPM solve taking an options dataclass) wrapped:
     every call's final state is recorded with the device program's figures
-    (``ipm.graph.LAST``, empty when the host loop ran) and the call's wall
-    (up to a sync), and with ``host_loop`` the call runs with
-    ``HostLoop=True``."""
+    (``ipm.graph.LAST``, empty when the host loop ran), the call's wall
+    (up to a sync on the card) and its positional arguments, and with
+    ``host_loop`` the call runs with ``HostLoop=True``."""
     import dataclasses
 
     from tulip_tpu_torch.ipm import graph
 
     real = getattr(module, name)
     calls = []
+    # solve_model records too, and runs in CPU rehearsals.
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
 
     def wrapped(*args, **kw):
         if host_loop:
@@ -1711,11 +1758,12 @@ def recorded(module, name, host_loop):
                          if dataclasses.is_dataclass(a)
                          and hasattr(a, "HostLoop") else a for a in args)
         graph.LAST.clear()
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = real(*args, **kw)
-        torch.cuda.synchronize()
-        calls.append((out, dict(graph.LAST), time.perf_counter() - t0))
+        sync()
+        calls.append((out, dict(graph.LAST), time.perf_counter() - t0,
+                      args))
         return out
 
     setattr(module, name, wrapped)
@@ -1782,7 +1830,7 @@ def device_twin(label, module, name, call, count, card, profile,
     check(all(same), f"{label}: the device program's final state differs "
           f"from HostLoop=True's in solves {[i for i, s in enumerate(same) if not s]}")
     syncs, bars = [], []
-    for state, fig, _ in first:
+    for state, fig, *_ in first:
         bar = -(-(int(state.niter.max()) + 1) // graph.K_PASSES) + 2
         syncs.append(fig["syncs"])
         bars.append(bar)
@@ -1798,6 +1846,8 @@ def device_twin(label, module, name, call, count, card, profile,
            "host_reads": syncs, "read_bars": bars,
            "warmup_s": sum(c[1]["warmup_s"] for c in first),
            "capture_s": sum(c[1]["capture_s"] for c in first),
+           "instantiate_s": sum(c[1]["instantiate_s"] for c in first),
+           "nodes_a_pass": [c[1]["nodes_a_pass"] for c in first],
            "first_replay_s": sum(c[1]["replay_s"] for c in first),
            "first_call_s": first_wall, "first_solve_s":
            sum(c[2] for c in first), "warm_call_s": wd,
@@ -1874,6 +1924,135 @@ def phase_device_program(device, count, card, slice_run, fused, warm_be,
                  solve_model(staircase_model(small, device, "float32"))),
         count, card, profile, want=("chol_inv",))
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s; {card}")
+    return res
+
+
+def structured_twin(label, mod, count, card, profile):
+    """One route of phase 14: the IPM call that ``mod``'s last solve made
+    (through the device program: phases 6b-7d), run again from one
+    initial state with ``HostLoop=True`` twice, then through a device
+    program built anew (the cache cleared) and 3 times warm. Checks the
+    statuses equal; where the two host-loop runs agree bit for bit, every
+    device-program state equal to theirs bit for bit, else iterations
+    within their range ±1 and objectives within 1e-9·max(1,|f|) of
+    theirs; one host read a pass. Prints the warm-up, capture and
+    instantiation seconds, the graph's nodes a pass, the first and the
+    warm solves' walls and ms an iteration beside the host loop's, and
+    peak device memory of both (above the data and the initial state);
+    under ``--profile``, kernel time and idle share of a warm solve and of
+    a host-loop run."""
+    import dataclasses
+
+    from tulip_tpu_torch.ipm import graph, hsd, mpc
+
+    _, fig, _, (dat, backend, opts) = mod.smoke_ipm[-1]
+    check(backend.device_loop and fig.get("built") is not None,
+          f"{label}: {backend.name!r} did not run as the device program")
+    if isinstance(opts, mpc.MPCOptions):
+        init, iteration = mpc.init_state_mpc, mpc.mpc_iteration
+    else:
+        def init(d, b):
+            return hsd.init_state(d, b, mehrotra=opts.MehrotraStart)
+        iteration = hsd.hsd_iteration
+    graph.clear_device_programs()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with hsd.full_matmul_precision():
+        state0 = init(dat, backend)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+
+    def run(o):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graph.LAST.clear()
+        t0 = time.perf_counter()
+        out = hsd.solve(backend, o, dat, init=lambda d, b: state0,
+                        iteration=iteration)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - base, dict(graph.LAST))
+
+    host_opts = dataclasses.replace(opts, HostLoop=True)
+    with count.phase() as launches:
+        host = [run(host_opts) for _ in range(2)]
+        first = run(opts)
+        warm = [run(opts) for _ in range(3)]
+    check(first[3].get("built") is True
+          and all(w[3].get("built") is False for w in warm)
+          and not any(h[3] for h in host),
+          f"{label}: the device program was not built once and replayed")
+
+    def lane(out):
+        return (int(out.status[0]), int(out.niter[0]), float(out.pobj[0]))
+
+    hs = [lane(h[0]) for h in host]
+    host_same = same_state_bits(host[0][0], host[1][0])
+    for r in [first] + warm:
+        st, it, z = lane(r[0])
+        check(st == hs[0][0], f"{label}: status {st} through the device "
+              f"program, {hs[0][0]} on the host loop")
+        bar = -(-(it + 1) // graph.K_PASSES) + 2
+        check(r[3]["syncs"] <= bar, f"{label}: {r[3]['syncs']} host reads, "
+              f"over the bar {bar}")
+        if host_same:
+            check(same_state_bits(r[0], host[0][0]), f"{label}: the device "
+                  f"program's state differs from the host loop's, whose two "
+                  f"runs agree bit for bit")
+        else:
+            its = [h[1] for h in hs]
+            check(min(its) - 1 <= it <= max(its) + 1, f"{label}: {it} "
+                  f"iterations, the host loop's {its}")
+            for _, _, zh in hs:
+                check(abs(z - zh) <= 1e-9 * max(1.0, abs(zh)), f"{label}: "
+                      f"objective {z!r} against the host loop's {zh!r}")
+    dev_same = all(same_state_bits(r[0], first[0]) for r in warm)
+    niter = hs[0][1]
+    wd = statistics.median(w[1] for w in warm)
+    fg = first[3]
+    out = {"backend": backend.name, "state": type(state0.kkt).__name__,
+           "iterations": [h[1] for h in hs] + [lane(first[0])[1]],
+           "host_loop_runs_equal_bits": host_same,
+           "device_equals_host_bits": same_state_bits(first[0], host[0][0]),
+           "device_runs_equal_bits": dev_same,
+           "objective_host": [h[2] for h in hs],
+           "objective_device": lane(first[0])[2],
+           "init_s": init_s, "warmup_s": fg["warmup_s"],
+           "capture_s": fg["capture_s"],
+           "instantiate_s": fg["instantiate_s"],
+           "nodes_a_pass": fg["nodes_a_pass"], "passes": fg["passes"],
+           "host_reads": fg["syncs"], "first_solve_s": first[1],
+           "first_replay_s": fg["replay_s"], "warm_solve_s": wd,
+           "host_loop_solve_s": [h[1] for h in host],
+           "ms_an_iteration": wd / niter * 1e3,
+           "host_loop_ms_an_iteration": statistics.mean(
+               h[1] for h in host) / niter * 1e3,
+           "peak_mb": first[2] / 1e6, "warm_peak_mb": warm[0][2] / 1e6,
+           "host_loop_peak_mb": host[0][2] / 1e6,
+           "launches": {k: v for k, v in launches.items() if v}}
+    if profile:
+        out["profile"] = profile_solve(
+            lambda: run(opts), os.path.join(profile, f"profile_{label}_"
+                                            f"graph.txt"), wd)
+        out["profile_host_loop"] = profile_solve(
+            lambda: run(host_opts), os.path.join(profile, f"profile_{label}"
+                                                 f"_host.txt"),
+            statistics.mean(h[1] for h in host))
+    log(f"[14] {label}: {backend.name} ({out['state']}) through the device "
+        f"program, {'bit for bit' if host_same else 'within the bars'} of "
+        f"HostLoop=True; {json.dumps(out)}; {card}")
+    return out
+
+
+def phase_structured_device(routes, count, card, profile):
+    """Phase 14: each route of phases 6b-7d (``routes``: label, solved
+    Model) through :func:`structured_twin`."""
+    t14 = time.perf_counter()
+    res = {label: structured_twin(label, mod, count, card, profile)
+           for label, mod in routes}
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; {card}")
     return res
 
 
@@ -2626,6 +2805,22 @@ def main(argv=None):
     phase_device_program(device, count, card, (raws, dats, opts), fused,
                          warm_be, out_f, dats2, probs, big, small,
                          args.profile)
+    phase_structured_device([
+        ("14a_banded_f64", structured["multiperiod_lp(4096) f64 HSD"][0]),
+        ("14b_banded_f32", structured["multiperiod_lp(4096) f32 HSD"][0]),
+        ("14c_banded_mpc", structured["multiperiod_lp(4096) f64 MPC"][0]),
+        ("14d_sparse_scattered",
+         structured["scattered_coupling_lp(2048) f64 HSD"][0]),
+        ("14e_sparse_first_8192", sparse_first["multiperiod_lp(8192)"][0]),
+        ("14f_smw_first_8192",
+         sparse_first["staircase_lp(8192, dense_cols=2)"][0]),
+        ("14g_smw_4096", sparse_first["staircase_lp(4096, dense_cols=2)"][0]),
+        ("14h_dense_ldl", mod_k2),
+        ("14i_sparse_ldl_4096", k2runs["multiperiod_lp(4096) K2"][0]),
+        ("14j_sparse_ldl_dense_cols",
+         k2runs["staircase_lp(2048, dense_cols=24, dense_scale=1.0)"][0]),
+        ("14k_extended", m_ext), ("14l_dense_mixed", m_mix),
+        ("14m_extended_dd", m_dd)], count, card, args.profile)
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

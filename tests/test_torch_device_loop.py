@@ -40,7 +40,9 @@ torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent / "data"
 OPT = int(TerminationStatus.OPTIMAL)
-DEVICE_BACKENDS = {"dense", "dense-pallas", "pallas-small"}
+DEVICE_BACKENDS = {"dense", "dense-pallas", "pallas-small", "banded",
+                   "sparse", "sparse-smw", "dense-ldl", "sparse-ldl",
+                   "extended", "extended-dd", "dense-mixed"}
 
 
 def mixed_lps(seed):
@@ -354,7 +356,7 @@ def test_other_backends_stay_on_the_host_loop(name, programs):
     assert programs == []
 
 
-@pytest.mark.parametrize("name", ["dense-ldl", "dense-mixed", "cg"])
+@pytest.mark.parametrize("name", ["sqd-minres", "lsqr", "cg"])
 def test_host_loop_backends_solve_without_a_program(name, programs):
     """A solve through a backend without ``device_loop`` runs and never
     builds a device program."""

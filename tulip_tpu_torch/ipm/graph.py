@@ -54,14 +54,15 @@ CACHE_SIZE = 8
 # the process started.
 CAPTURES = 0
 # Launches of the port's kernels in the warm-up passes before captures
-# (eager, on a throwaway copy of the state); they count in no kernel's
-# KERNEL_LAUNCHES.
+# (eager, on the static buffers, which are loaded again after); they count
+# in no kernel's KERNEL_LAUNCHES.
 WARMUP_LAUNCHES = 0
 # The last solve through a device program: passes replayed, host reads,
-# whether the program was built for it, the seconds of its warm-up pass and
-# of its capture and instantiation (0 when it came from the cache), the
-# seconds of the replays and reads, and the launches of the port's kernels
-# captured in one pass, by kernel.
+# whether the program was built for it, the seconds of its warm-up pass, of
+# its capture and of its instantiation (0 when it came from the cache), the
+# seconds of the replays and reads, the nodes of the captured pass (all
+# launches and copies; None on the CPU) and the launches of the port's
+# kernels among them, by kernel.
 LAST: dict = {}
 
 _CACHE: "OrderedDict[Any, Program]" = OrderedDict()
@@ -196,6 +197,19 @@ def _fresh(x):
     return x
 
 
+def _graph_nodes(g) -> int:
+    """The nodes of a captured graph that is not instantiated yet
+    (``cuGraphGetNodes`` of libcuda on ``g.raw_cuda_graph()``)."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
+    return n.value
+
+
 class Program:
     """One pass of a solve over static buffers: a captured CUDA graph on
     the card, the pass run step by step on the CPU."""
@@ -212,16 +226,20 @@ class Program:
              for x in leaves(state)]))
         self.frozen = frozenset(id(x) for x in leaves(self.dat)
                                 if torch.is_tensor(x))
+        # Positions of the state leaves that a pass returns as they came
+        # (a structured state's plan: index tensors, constant tiles).
+        self.passthrough: frozenset = frozenset()
         self.cuda = dat.b.device.type == "cuda"
         self.graph = None
         self.captured: List[Tuple[Any, Any, dict]] = []
-        self.warmup_s = self.capture_s = 0.0
+        self.warmup_s = self.capture_s = self.instantiate_s = 0.0
+        self.nodes = None
         self.load(dat, state)
         if self.cuda:
             self.flag = torch.zeros((), dtype=torch.bool, device=dat.b.device)
             self.host = torch.zeros((), dtype=torch.bool).pin_memory()
             self.event = torch.cuda.Event()
-            self._capture()
+            self._capture(dat, state)
         CAPTURES += 1
 
     def load(self, dat, state) -> None:
@@ -233,30 +251,37 @@ class Program:
                 s.copy_(x)
 
     def _pass(self, state) -> None:
-        assign(state, self.step(self.dat, state), self.frozen)
+        out = self.step(self.dat, state)
+        self.passthrough = frozenset(
+            i for i, (a, b) in enumerate(zip(leaves(state), leaves(out)))
+            if a is b and torch.is_tensor(a))
+        assign(state, out, self.frozen)
 
-    def _capture(self) -> None:
-        # Warm-up: one pass, eagerly, on a throwaway copy of the state, so
-        # that every launch path the pass takes has run once before the
-        # capture (nvcc builds and library loads, CUDA's lazy module loading,
-        # cuBLAS/cuSOLVER handles and workspaces).
+    def _capture(self, dat, state) -> None:
+        # Warm-up: one pass, eagerly, on the static buffers, which are then
+        # loaded again, so that every launch path the pass takes has run
+        # once before the capture (nvcc builds and library loads, CUDA's
+        # lazy module loading, cuBLAS/cuSOLVER handles and workspaces).
         t0 = time.perf_counter()
-        scratch = _rebuild(self.state, iter(
-            [x if id(x) in self.frozen or not torch.is_tensor(x)
-             else x.clone() for x in leaves(self.state)]))
         with _device_mode(warmup=True):
-            self._pass(scratch)
-        del scratch
+            self._pass(self.state)
+        self.load(dat, state)
         torch.cuda.synchronize()
         self.warmup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        g = torch.cuda.CUDAGraph()
+        # keep_graph: instantiated apart, after its nodes are counted.
+        g = torch.cuda.CUDAGraph(keep_graph=True)
         captured: list = []
         with _device_mode(captured=captured):
             with torch.cuda.graph(g):
                 self._pass(self.state)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
+        self.nodes = _graph_nodes(g)
+        t0 = time.perf_counter()
+        g.instantiate()
+        torch.cuda.synchronize()
+        self.instantiate_s = time.perf_counter() - t0
         self.graph, self.captured = g, captured
 
     def replay(self) -> None:
@@ -278,14 +303,22 @@ class Program:
         self.event.synchronize()
         return bool(self.host)
 
-    def result(self, dat):
+    def result(self, dat, state):
         """The final state out of the static buffers: a copy, with the
-        caller's own data leaves where the state holds data leaves."""
+        caller's own data leaves where the state holds data leaves and the
+        caller's own leaves of ``state`` where a pass passes them
+        through (equal to the static ones: a pass never writes them)."""
         back = {id(s): x for s, x in zip(leaves(self.dat), leaves(dat))}
-        return _rebuild(self.state, iter(
-            [back[id(s)] if id(s) in back else
-             (s.clone() if torch.is_tensor(s) else s)
-             for s in leaves(self.state)]))
+        theirs = leaves(state)
+        out = []
+        for i, s in enumerate(leaves(self.state)):
+            if id(s) in back:
+                out.append(back[id(s)])
+            elif i in self.passthrough:
+                out.append(theirs[i])
+            else:
+                out.append(s.clone() if torch.is_tensor(s) else s)
+        return _rebuild(self.state, iter(out))
 
 
 def run(key, dat, state, step: Callable, live: Callable):
@@ -324,8 +357,10 @@ def run(key, dat, state, step: Callable, live: Callable):
     LAST.update(passes=passes, syncs=syncs, built=built,
                 warmup_s=prog.warmup_s if built else 0.0,
                 capture_s=prog.capture_s if built else 0.0,
-                replay_s=replay_s, launches_a_pass=per_pass)
-    return prog.result(dat)
+                instantiate_s=prog.instantiate_s if built else 0.0,
+                replay_s=replay_s, nodes_a_pass=prog.nodes,
+                launches_a_pass=per_pass)
+    return prog.result(dat, state)
 
 
 def clear_device_programs() -> None:

@@ -25,7 +25,8 @@ per-lane masks:
   inner loops run their bound of trips, masked (3 bumps, CorrectionLimit
   corrections). It is taken when nothing needs the host between passes
   (``OutputLevel == 0``, no ``log_fn``, no finite ``TimeLimit``,
-  ``HostLoop`` off) and the backend declares ``device_loop``;
+  ``HostLoop`` off) and the backend declares ``device_loop`` (every
+  backend but the 13 Krylov ones and ``"schur"``);
 - the host-driven loop: every loop asks the device whether any lane is
   still active, one host sync a pass, a bump and a correction.
 
@@ -646,12 +647,15 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
 
 def require_device_loop(backend) -> None:
     """Raise ``NotImplementedError`` for a backend that runs on the
-    host-driven loop only (``device_loop`` False)."""
+    host-driven loop only (``device_loop`` False): the 13 Krylov backends,
+    whose trips stop on a host test, and ``"schur"``, whose Gloo
+    collectives stage through host memory."""
     if not backend.device_loop:
         raise NotImplementedError(
             f"KKT backend {backend.name!r} ({type(backend).__name__}) has no "
             f"device program: it runs on the host-driven loop only (ROADMAP "
-            f"item 12, 'left'); use hsd_solve/mpc_solve or HostLoop=True")
+            f"item 12, 'left': the Krylov trips and 'schur'); use "
+            f"hsd_solve/mpc_solve or HostLoop=True")
 
 
 def device_solve(backend, opts, dat, state: HSDState,

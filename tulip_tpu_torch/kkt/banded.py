@@ -77,6 +77,8 @@ class BandedK1Backend(KKTBackend):
 
     name = "banded"
     systems = ("K1",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     # The symbolic bandwidth is rounded up to a multiple of this.
     min_block: int = 64
     # "level": execute through the shared nested-dissection level engine

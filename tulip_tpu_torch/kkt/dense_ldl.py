@@ -90,6 +90,8 @@ class DenseK2State(NamedTuple):
 class DenseK2Backend(KKTBackend):
     name = "dense-ldl"
     systems = ("K2",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
 
     def linear_system(self) -> str:
         return "Augmented system (K2)"

@@ -53,9 +53,6 @@ class ExtendedK1Backend(DenseK1Backend):
     name = "extended"
     systems = ("K1",)
     refinement_steps: int = 2
-    # Not yet held to the device program (its double-double sweeps have
-    # not been run under capture): the host-driven loop (ROADMAP item 12).
-    device_loop = False
 
     def arithmetic_label(self, dtype) -> str:
         return f"{super().arithmetic_label(dtype)} + double-double refinement"

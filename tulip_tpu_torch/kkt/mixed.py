@@ -43,6 +43,8 @@ class MixedK1State(NamedTuple):
 class MixedK1Backend(KKTBackend):
     name = "dense-mixed"
     systems = ("K1",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     refinement_steps: int = 3
 
     def arithmetic_label(self, dtype) -> str:

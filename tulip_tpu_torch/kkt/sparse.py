@@ -314,6 +314,8 @@ class SparseK1Backend(KKTBackend):
 
     name = "sparse"
     systems = ("K1",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     block: int = 64
     # "level": nested-dissection block ordering + elimination-level batched
     # execution with support-compressed assembly (kkt/levels.py);

@@ -262,6 +262,8 @@ class SparseK2Backend(KKTBackend):
 
     name = "sparse-ldl"
     systems = ("K2",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     block: int = 64
     jacobi_scale: bool = True
     # "column" (the default) or "level"; see the module docstring.

@@ -56,6 +56,8 @@ class SplitK1Backend(KKTBackend):
 
     name = "sparse-smw"
     systems = ("K1",)
+    # update and solve read nothing on the host (KKTBackend.device_loop).
+    device_loop = True
     block: int = 64
     # Forwarded to the inner tiled backend: "level" or "column".
     schedule: str = "level"
