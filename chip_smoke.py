@@ -119,10 +119,12 @@ Phases, each of which exits non-zero on a failed check:
    ``"cg"`` and ``multiperiod_lp(128)`` through ``"sqd-minres"``
    (``KRYLOV_E2E``), each beside ``"dense"``, OPTIMAL within 1e-6 of
    HiGHS, with iterations, walls, ``Model.timings``, Krylov trips and
-   host syncs a solve; one solve of cg, sqd-minres and lsmr on
-   ``multiperiod_lp(4096)``'s A (Θ⁻¹ over four decades, Rd = 1e-8):
-   trips, ms a trip, host syncs, with the default test for a stop and
-   with one on every trip, and the relative residual of the system each
+   host syncs a solve (the port's loop counters, ``ipm/graph.py``); these
+   Models solve as the device program; one solve of cg, sqd-minres and
+   lsmr on
+   ``multiperiod_lp(4096)``'s A (Θ⁻¹ over four decades, Rd = 1e-8), on
+   the host-driven loop: trips, ms a trip, host syncs, with the default
+   test for a stop and with one on every trip, and the relative residual of the system each
    iterates on (K1; sqd-minres's SQD-scaled K2) within 10·rtol;
 11b. ``explicit_minv``: the slice of phase 4 through
    ``SmallK1Backend(explicit_minv=True)`` (K⁻¹ from the chol-inv kernel's
@@ -142,7 +144,8 @@ Phases, each of which exits non-zero on a failed check:
 12. after phase 11, the distributed Schur path (``"schur"``) at the
    reference's regime-2b blocks (m0, n0, mk, nk) = (8, 128, 128, 256),
    f64 at the default tolerances (``parallel/dryrun.py:two_stage_arrays``,
-   seed 11):
+   seed 11), every solve as the device program (phase 15d holds it to the
+   host loop):
 12a. K = 32 (m = 4104, n = 8320): ``hsd_solve`` through ``"schur"``
    (unsharded) and through ``"dense"`` on ``block_angular_to_dense`` of
    the same LP, both OPTIMAL and within 1e-7·max(1,|f|); iterations, walls,
@@ -154,7 +157,9 @@ Phases, each of which exits non-zero on a failed check:
    an iteration, peak device memory beside the bytes of T and W;
 12c. the 12a LP sharded over an NCCL group of one in this process (12a's
    iterations and objective bit for bit), then over two spawned processes
-   on the card in a Gloo group (collectives staged through host memory):
+   on the card in a Gloo group (collectives staged through host memory:
+   host operations between the pass's captured segments), which also
+   solve it warm and on the host loop for phase 15d:
    12a's iterations, the objective within 1e-8 relative, the ranks' final
    states equal bit for bit, the largest collective at most n0² = 16,384
    elements and one n0×n0 all-reduce per factorization attempt; the
@@ -187,30 +192,58 @@ Phases, each of which exits non-zero on a failed check:
    ``"dense-mixed"``, ``"extended-dd"``), which ran as the device program
    there, run again from one initial state with ``HostLoop=True`` twice,
    then through a program built anew (the cache cleared) and 3 times warm:
-   statuses equal; where the two host-loop runs agree bit for bit, every
-   device-program state equal to theirs bit for bit, else iterations
-   within their range ±1 and objectives within 1e-9·max(1,|f|); one host
-   read a pass; the warm-up, capture and instantiation seconds, the
+   statuses equal, the two host-loop runs equal bit for bit and every
+   device-program state equal to theirs bit for bit; on 14d and 14g
+   (``SCATTER_ROUTES``) every call of the level engine's scatter-add
+   (``kkt/levels.py:index_add_fixed``) of a third host-loop run run twice
+   more and compared bit for bit; one host read a pass; the warm-up,
+   capture and instantiation seconds, the
    graph's nodes a pass, the first and the median warm solve's walls and
    ms an iteration beside the host loop's, peak device memory of both;
    under ``--profile``, kernel time and idle share of a warm solve and a
    host-loop run;
+15. after phase 14, the Krylov and Schur routes through the device
+   program (a pass is a script: captured segments, each Krylov solve a
+   loop of chunk graphs of 16 trips with a host read before each chunk,
+   each Gloo collective a host operation), each beside ``HostLoop=True``
+   in this process, every final state equal to the host loop's bit for
+   bit:
+15a. the IPM call of each of phase 11a's 13 transportation-LP Models:
+   statuses as ``KRYLOV_STATUS``; every Krylov solve of the host loop
+   found, in order, among the program's (which adds the masked
+   corrections' solves) with the same trips and host reads
+   (``graph.LOOP_LOG``); segments, loops, chunk graphs and
+   nodes a pass, warm-up, capture and instantiation seconds, ms an
+   iteration of the replays, trips and host reads a solve of both;
+15b. phase 11a's end-to-end IPM calls (``KRYLOV_E2E``), replaying the
+   program 11a built: ms an iteration of its replays beside the host
+   loop's and ``"dense"``'s, IPM wall a trip, the masked corrections'
+   trips, and under ``--profile`` kernel time and idle share of a warm
+   program solve;
+15c. phase 11a's one solves at m = 4096 as the loop of a one-pass
+   program: trips and bits equal to the host loop's, ms a trip beside its
+   own and (cg) A read twice at 3.35 TB/s;
+15d. ``"schur"`` at K = 32 and 1024 (12a, 12b) through a program built
+   anew and warm beside the host loop (bits, ms an iteration, peak
+   memory, ``Comm`` counts); the K = 32 LP over a ``SCHUR_GROUP`` group
+   of one (one captured segment a pass, 12a's state bit for bit); 12c's
+   two Gloo processes (program state equal to the host loop's on each
+   rank, ranks equal, 12a's iterations; warm ms an iteration, segments
+   and host operations a pass);
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
    4-9, 11-13 gave the fused solve and every (B, m, instances per
    block) they gave the chol-inv kernel, held against the plain version on
    seeded inputs of that shape with phase 3's and 3c's bars; the chol-inv
    shapes must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 and 11-14 (6b, 6c, 7b, 7c, 7d, 12a-12d, 13's pairs and 14's
+Phases 4-9 and 11-15 (6b, 6c, 7b, 7c, 7d, 12a-12d, 13's pairs and 14's
 routes included) are the main path: every kernel's launch count is reset
 just before each of them and read just after (12d's in each worker, just
-before and after its solve). Solves through the backends that declare
-``device_loop`` (every backend but the 13 Krylov ones and ``"schur"``:
-``"dense"``, ``"pallas-small"``, ``"dense-pallas"``, ``"banded"``,
-``"sparse"``, ``"sparse-smw"``, ``"dense-ldl"``, ``"sparse-ldl"``,
-``"extended"``, ``"extended-dd"``, ``"dense-mixed"``) run as the device
-program (``tulip_tpu_torch/ipm/graph.py``) unless an iteration log is
-asked for (the CLI's runs): a kernel in its
+before and after its solve). Solves through every backend (each declares
+``device_loop``) run as the device program
+(``tulip_tpu_torch/ipm/graph.py``) unless an iteration log is asked for
+(the CLI's runs) or ``HostLoop=True`` (the twins of phases 13-15): a
+kernel in its
 captured pass counts once for every replay of the pass, credited when the
 solve ends, and a capture or its warm-up counts no launch. The last lines are the card's name and power limit, a JSON list of
 the kernels with their launches, errors, times and bounds, and the JSON
@@ -220,8 +253,8 @@ phase-6 solve, of phase 6b's banded f32 solve, of phase 6c's sparse-first
 ``multiperiod_lp(8192)``, of phase 7b's K2 solve, of phase 7c's
 ``"sparse-ldl"`` K2 solve of ``multiperiod_lp(4096)``, of phase 11a's
 cg solve at m = 4096, of phase 12a's and 12b's solves and of a warm
-device-program solve and a host-loop run of each pair of phases 13 and
-14 to DIR.
+device-program solve and a host-loop run of each pair of phases 13, 14
+and 15b to DIR.
 """
 
 from __future__ import annotations
@@ -335,6 +368,9 @@ SCHUR_K = 32
 SCHUR_BIG_K = 1024
 SCHUR_GROUP = "nccl"
 SCHUR_JOB_S = 300.0
+# Phase 14's routes whose host loop gave other bits on each run before the
+# level engine's scatter-adds summed in one order (14d and 14g).
+SCATTER_ROUTES = ("14d_sparse_scattered", "14g_smw_4096")
 # NVIDIA H100 SXM's published peaks (data sheet, dense, 700 W): device
 # memory bandwidth, float32 outside the tensor cores, and TF32 in them.
 PEAK_BYTES_S = 3.35e12
@@ -1137,43 +1173,34 @@ def transportation(ns=6, nd=9, seed=0):
 
 
 class KrylovTrips:
-    """Trips and host syncs of the Krylov loops run inside :meth:`count`:
-    wraps ``kkt.krylov``'s loop (one call a solve) and its host test, as
-    the kernel wrappers' counts count launches."""
+    """Krylov solves, their trips and the host reads of their stopping
+    masks inside :meth:`count`, from the port's own counters
+    (``ipm/graph.py``: ``LOOPS``, ``LOOP_TRIPS``, ``LOOP_READS``), which
+    the host-driven loop and the device program's loop items keep alike
+    (warm-ups and captures count nowhere)."""
 
     def __init__(self):
-        self.trips = []
-        self.syncs = 0
+        self.solves = self.trips = self.syncs = 0
 
     @contextlib.contextmanager
     def count(self):
-        from tulip_tpu_torch.kkt import krylov
+        from tulip_tpu_torch.ipm import graph
 
-        loop, any_ = krylov._masked_while, krylov._any
-
-        def counted(cond, body, carry, maxiter):
-            self.trips.append(0)
-
-            def body_(c, k):
-                self.trips[-1] += 1
-                return body(c, k)
-            return loop(cond, body_, carry, maxiter)
-
-        def synced(active):
-            self.syncs += 1
-            return any_(active)
-
-        krylov._masked_while, krylov._any = counted, synced
+        before = (graph.LOOPS, graph.LOOP_TRIPS, graph.LOOP_READS)
         try:
             yield self
         finally:
-            krylov._masked_while, krylov._any = loop, any_
+            d = [a - b for a, b in zip((graph.LOOPS, graph.LOOP_TRIPS,
+                                        graph.LOOP_READS), before)]
+            self.solves += d[0]
+            self.trips += d[1]
+            self.syncs += d[2]
 
     def describe(self):
-        n = max(len(self.trips), 1)
-        return (f"{len(self.trips)} solves, trips a solve mean "
-                f"{sum(self.trips) / n:.1f} max {max(self.trips, default=0)}, "
-                f"host syncs a solve {self.syncs / n:.2f}")
+        n = max(self.solves, 1)
+        return (f"{self.solves} solves, trips a solve mean "
+                f"{self.trips / n:.1f}, host syncs a solve "
+                f"{self.syncs / n:.2f}")
 
 
 def krylov_model(pb, device, name):
@@ -1309,12 +1336,13 @@ def phase_krylov(device, count, big, card, profile):
         err = check_objective(what, z, ref, 1e-6)
         log(f"  {what}, f64: OPTIMAL, objective {z!r} vs HiGHS (rel "
             f"{err:.3e}); {describe(mod, wall)}"
-            + (f"; {trips.describe()}" if trips.trips else ""))
+            + (f"; {trips.describe()}" if trips.solves else ""))
     log(f"  launches {n11e}; {card}")
 
     A = torch.as_tensor(big[0].toarray(), device=device)[None]
     state = k1_state(A, 4, device)
     rtol = float(np.sqrt(np.finfo(np.float64).eps))
+    one = {}
     for name in KRYLOV_ONE_SOLVE:
         be = make_backend(name)
         st, ok = be.update(be.setup(A), *state[:3])
@@ -1340,14 +1368,15 @@ def phase_krylov(device, count, big, card, profile):
               f"residual {own:.3e} > 10 rtol")
         w1, t1 = runs[1][:2]
         log(f"[11a] one {name} solve on multiperiod_lp(4096)'s A (4096 x "
-            f"6240 f64), Θ⁻¹ over 1e4, Rd = {KRYLOV_REG}: {trips.trips[0]} "
-            f"trips, {wall * 1e3:.3f} ms = {wall / trips.trips[0] * 1e3:.4f} "
+            f"6240 f64), Θ⁻¹ over 1e4, Rd = {KRYLOV_REG}: {trips.trips} "
+            f"trips, {wall * 1e3:.3f} ms = {wall / trips.trips * 1e3:.4f} "
             f"ms a trip, {trips.syncs} host syncs (a test every "
             f"{krylov._CHECK_EVERY} trips); relative K1 residual {k1:.3e}, "
             f"SQD-scaled K2 residual {k2:.3e} (its own: {what}, <= 10 rtol = "
-            f"{10 * rtol:.3e}); with a test on every trip: {t1.trips[0]} "
-            f"trips, {w1 * 1e3:.3f} ms = {w1 / t1.trips[0] * 1e3:.4f} ms a "
+            f"{10 * rtol:.3e}); with a test on every trip: {t1.trips} "
+            f"trips, {w1 * 1e3:.3f} ms = {w1 / t1.trips * 1e3:.4f} ms a "
             f"trip, {t1.syncs} syncs; {card}")
+        one[name] = (be, st, runs[krylov._CHECK_EVERY])
         if profile and name == "cg":
             trips = KrylovTrips()
             with trips.count():
@@ -1355,8 +1384,9 @@ def phase_krylov(device, count, big, card, profile):
                     lambda: be.solve(st, *state[3:]),
                     os.path.join(profile, "profile_krylov_cg.txt"), wall)
             log(f"  launches a trip under the profiler: {n_kernels} kernel "
-                f"launches / {trips.trips[0]} trips = "
-                f"{n_kernels / trips.trips[0]:.2f}")
+                f"launches / {trips.trips} trips = "
+                f"{n_kernels / trips.trips:.2f}")
+    return golden, e2e, (A, state, one)
 
 
 def phase_explicit_minv(device, count, slice_run, iters4, small, ref_small):
@@ -1632,7 +1662,13 @@ def phase_distributed(device, count, card, slice_run, iters4, wall4,
         f"iterations, pobj equal to 12a's bit for bit, wall {wall_1:.4f} s; "
         f"{comm_line(comm.counts, comm.nbytes, it_s)}")
     raws, dats, opts4, refs_slice = slice_run
+    # The Schur solve through the device program (its Gloo collectives are
+    # host operations between captured segments), again warm, and on the
+    # host loop: phase 15d holds them to each other.
     cases = [("schur", "schur", dict(arrays=arrays, state=True)),
+             ("schur_warm", "schur", dict(arrays=arrays)),
+             ("schur_host", "schur", dict(arrays=arrays, state=True,
+                                          host_loop=True)),
              ("slice", "batch", dict(nb=len(raws), m=48, n=96, seed=0,
                                      tol=TOL, backend="pallas-small",
                                      refinement_steps=1, reps=2))]
@@ -1710,6 +1746,7 @@ def phase_distributed(device, count, card, slice_run, iters4, wall4,
         f"{[x['chol_launches'] for x in sl]}; the 2-process job took "
         f"{wall_job:.1f} s")
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s; {card}")
+    return {"ranks": ranks}
 
 
 # ---------------------------------------------------------------------------
@@ -1927,15 +1964,58 @@ def phase_device_program(device, count, card, slice_run, fused, warm_be,
     return res
 
 
+@contextlib.contextmanager
+def scatter_repeats(plain=False):
+    """Every call of the level engine's scatter-add
+    (``kkt/levels.py:index_add_fixed``, from ``kkt/levels.py`` and
+    ``kkt/sparse.py``) inside: run twice more on copies of its input and
+    compared bit for bit; with ``plain``, the two extra runs are of
+    ``index_add_`` itself, the op it replaced (the solve goes on with
+    ``index_add_fixed``'s result either way). Yields {call site: [calls,
+    calls that moved a bit]}."""
+    import sys
+
+    from tulip_tpu_torch.kkt import levels, sparse
+
+    real = levels.index_add_fixed
+    seen = {}
+
+    def probe(t, index, source, alpha=1):
+        return t.index_add_(0, index, source, alpha=alpha)
+
+    def twice(t, index, source, alpha=1):
+        f = sys._getframe(1)
+        site = (f"{os.path.relpath(f.f_code.co_filename, ROOT)}:"
+                f"{f.f_lineno}")
+        run = probe if plain else real
+        a = run(t.clone(), index, source, alpha=alpha)
+        b = run(t.clone(), index, source, alpha=alpha)
+        s = seen.setdefault(site, [0, 0])
+        s[0] += 1
+        bits = {8: torch.int64, 4: torch.int32}[a.element_size()]
+        s[1] += not torch.equal(a.view(bits), b.view(bits))
+        return real(t, index, source, alpha=alpha)
+
+    levels.index_add_fixed = sparse.index_add_fixed = twice
+    try:
+        yield seen
+    finally:
+        levels.index_add_fixed = sparse.index_add_fixed = real
+
+
 def structured_twin(label, mod, count, card, profile):
     """One route of phase 14: the IPM call that ``mod``'s last solve made
     (through the device program: phases 6b-7d), run again from one
     initial state with ``HostLoop=True`` twice, then through a device
     program built anew (the cache cleared) and 3 times warm. Checks the
-    statuses equal; where the two host-loop runs agree bit for bit, every
-    device-program state equal to theirs bit for bit, else iterations
-    within their range ±1 and objectives within 1e-9·max(1,|f|) of
-    theirs; one host read a pass. Prints the warm-up, capture and
+    statuses equal, the two host-loop runs equal bit for bit and every
+    device-program state equal to theirs bit for bit; one host read a
+    pass. On the routes whose host loop did not repeat its bits before
+    the level engine's scatter-adds were made to (``SCATTER_ROUTES``), a
+    third host-loop run runs each of those scatters twice more and
+    compares their bits, and a fourth runs plain ``index_add_`` twice at
+    the same calls and counts the calls whose two runs differ (the
+    census that found them; not a check). Prints the warm-up, capture and
     instantiation seconds, the graph's nodes a pass, the first and the
     warm solves' walls and ms an iteration beside the host loop's, and
     peak device memory of both (above the data and the initial state);
@@ -1990,6 +2070,8 @@ def structured_twin(label, mod, count, card, profile):
 
     hs = [lane(h[0]) for h in host]
     host_same = same_state_bits(host[0][0], host[1][0])
+    check(host_same, f"{label}: two host-loop runs from one initial state "
+          f"differ")
     for r in [first] + warm:
         st, it, z = lane(r[0])
         check(st == hs[0][0], f"{label}: status {st} through the device "
@@ -1997,17 +2079,8 @@ def structured_twin(label, mod, count, card, profile):
         bar = -(-(it + 1) // graph.K_PASSES) + 2
         check(r[3]["syncs"] <= bar, f"{label}: {r[3]['syncs']} host reads, "
               f"over the bar {bar}")
-        if host_same:
-            check(same_state_bits(r[0], host[0][0]), f"{label}: the device "
-                  f"program's state differs from the host loop's, whose two "
-                  f"runs agree bit for bit")
-        else:
-            its = [h[1] for h in hs]
-            check(min(its) - 1 <= it <= max(its) + 1, f"{label}: {it} "
-                  f"iterations, the host loop's {its}")
-            for _, _, zh in hs:
-                check(abs(z - zh) <= 1e-9 * max(1.0, abs(zh)), f"{label}: "
-                      f"objective {z!r} against the host loop's {zh!r}")
+        check(same_state_bits(r[0], host[0][0]), f"{label}: the device "
+              f"program's state differs from the host loop's")
     dev_same = all(same_state_bits(r[0], first[0]) for r in warm)
     niter = hs[0][1]
     wd = statistics.median(w[1] for w in warm)
@@ -2032,6 +2105,18 @@ def structured_twin(label, mod, count, card, profile):
            "peak_mb": first[2] / 1e6, "warm_peak_mb": warm[0][2] / 1e6,
            "host_loop_peak_mb": host[0][2] / 1e6,
            "launches": {k: v for k, v in launches.items() if v}}
+    if label in SCATTER_ROUTES:
+        with scatter_repeats() as seen:
+            again = run(host_opts)
+        moved = {k: v for k, v in seen.items() if v[1]}
+        check(seen and not moved and same_state_bits(again[0], host[0][0]),
+              f"{label}: the level engine's scatter-adds moved bits between "
+              f"two runs of one input: {moved} (calls, moved) by site")
+        out["scatter_calls"] = seen
+        # The census that found them: plain index_add_ at the same sites.
+        with scatter_repeats(plain=True) as census:
+            run(host_opts)
+        out["plain_index_add_moved"] = census
     if profile:
         out["profile"] = profile_solve(
             lambda: run(opts), os.path.join(profile, f"profile_{label}_"
@@ -2041,8 +2126,8 @@ def structured_twin(label, mod, count, card, profile):
                                                  f"_host.txt"),
             statistics.mean(h[1] for h in host))
     log(f"[14] {label}: {backend.name} ({out['state']}) through the device "
-        f"program, {'bit for bit' if host_same else 'within the bars'} of "
-        f"HostLoop=True; {json.dumps(out)}; {card}")
+        f"program, bit for bit with HostLoop=True, whose two runs agree; "
+        f"{json.dumps(out)}; {card}")
     return out
 
 
@@ -2053,6 +2138,370 @@ def phase_structured_device(routes, count, card, profile):
     res = {label: structured_twin(label, mod, count, card, profile)
            for label, mod in routes}
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the Krylov and Schur routes through the device program
+# ---------------------------------------------------------------------------
+
+def same_tensor_bits(a, b):
+    """Whether two final states' tensors are equal bit for bit, leaf by
+    leaf (leaves that are not tensors, such as a Schur state's group, are
+    not compared)."""
+    from tulip_tpu_torch.ipm.graph import leaves
+
+    la = [x for x in leaves(a) if torch.is_tensor(x)]
+    lb = [x for x in leaves(b) if torch.is_tensor(x)]
+    return len(la) == len(lb) and all(same_bits(x.cpu(), y.cpu())
+                                      for x, y in zip(la, lb))
+
+
+def program_twin(label, dat, backend, opts, iteration, init, warm=1,
+                 built=None, profile=None):
+    """One solve from one initial state (``init``, run once, eagerly)
+    through the host-driven loop and through a device program built anew
+    (the cache cleared), then ``warm`` times warm; with ``warm = 0`` the
+    first solve's replays (``graph.LAST["replay_s"]``: no warm-up, capture
+    or instantiation) stand for a warm solve. With ``built``, the figures
+    of an earlier solve that built the same program, the cache is kept
+    and its build figures are those. Checks the final states equal bit
+    for bit. Returns the figures: iterations, walls and ms an iteration,
+    peak device memory above the inputs, the program's script, nodes,
+    capture and instantiation seconds, and the Krylov solves, trips and
+    host reads of both (``KrylovTrips``), the program's from
+    ``graph.LAST``."""
+    import dataclasses
+
+    from tulip_tpu_torch.ipm import graph, hsd
+
+    if built is None:
+        graph.clear_device_programs()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    with hsd.full_matmul_precision():
+        state0 = init(dat, backend)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    comm = getattr(dat, "comm", None)
+
+    def run(o):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graph.LAST.clear()
+        if comm is not None:
+            comm.reset()
+        trips = KrylovTrips()
+        graph.LOOP_LOG = trips.log = []
+        t0 = time.perf_counter()
+        try:
+            with trips.count():
+                out = hsd.solve(backend, o, dat, init=lambda d, b: state0,
+                                iteration=iteration)
+                torch.cuda.synchronize()
+        finally:
+            graph.LOOP_LOG = None
+        wall = time.perf_counter() - t0
+        trips.comm = None if comm is None else comm_line(
+            comm.counts, comm.nbytes, max(int(out.niter.max()), 1))
+        return (out, wall, torch.cuda.max_memory_allocated() - base,
+                dict(graph.LAST), trips)
+
+    host = run(dataclasses.replace(opts, HostLoop=True))
+    first = run(opts)
+    warms = [run(opts) for _ in range(warm)]
+    fg = first[3]
+    check((built is not None or fg.get("built") is True) and not host[3]
+          and all(w[3].get("built") is False for w in warms),
+          f"{label}: the device program was not built once and replayed")
+    check(same_tensor_bits(first[0], host[0])
+          and all(same_tensor_bits(w[0], host[0]) for w in warms),
+          f"{label}: the device program's final state differs from the "
+          f"host loop's")
+    # Each Krylov solve of the host loop is one of the program's, with its
+    # trips and host reads: the program adds the masked corrections' solves.
+    check(is_subsequence(host[4].log, first[4].log),
+          f"{label}: the host loop's Krylov solves (trips, host reads) are "
+          f"not, in order, among the device program's")
+    niter = max(int(host[0].niter.max()), 1)
+    wd = (statistics.median(w[1] for w in warms) if warms
+          else fg["replay_s"])
+    if built is not None:
+        fg = {**fg, **{k: built[k] for k in ("warmup_s", "capture_s",
+                                             "instantiate_s")}}
+    ht = host[4]
+    out = {"backend": backend.name, "status": int(first[0].status[0]),
+           "iterations": int(host[0].niter.max()),
+           "host_loop_s": host[1], "first_s": first[1], "warm_s": wd,
+           "ms_an_iteration": wd / niter * 1e3,
+           "host_loop_ms_an_iteration": host[1] / niter * 1e3,
+           "peak_mb": first[2] / 1e6, "host_loop_peak_mb": host[2] / 1e6,
+           "passes": fg["passes"], "segments": fg["segments"],
+           "loops_a_pass": fg["loops_a_pass"],
+           "chunk_graphs": fg["chunk_graphs"],
+           "host_ops_a_pass": fg["host_ops_a_pass"],
+           "nodes_a_pass": fg["nodes_a_pass"],
+           "chunk_nodes": fg["chunk_nodes"], "warmup_s": fg["warmup_s"],
+           "capture_s": fg["capture_s"],
+           "instantiate_s": fg["instantiate_s"],
+           "solves": fg["loops"], "trips": fg["trips"],
+           "loop_reads": fg["loop_reads"],
+           "chunk_replays": fg["chunk_replays"],
+           "host_reads": fg["host_reads"],
+           "host_loop_solves": ht.solves, "host_loop_trips": ht.trips,
+           "host_loop_loop_reads": ht.syncs,
+           "masked_trips": fg["trips"] - ht.trips}
+    if comm is not None:
+        out["comm"], out["host_loop_comm"] = (warms or [first])[-1][4].comm, \
+            ht.comm
+    if fg["loops"]:
+        out["trips_a_solve"] = fg["trips"] / fg["loops"]
+        out["reads_a_solve"] = fg["loop_reads"] / fg["loops"]
+        out["ms_a_trip"] = wd / fg["trips"] * 1e3
+    if ht.solves:
+        out["host_loop_trips_a_solve"] = ht.trips / ht.solves
+        out["host_loop_reads_a_solve"] = ht.syncs / ht.solves
+        out["host_loop_ms_a_trip"] = host[1] / ht.trips * 1e3
+    if profile:
+        # The warm program only: a host-loop run of these routes records
+        # a profiler event for each of its ~29 launches a trip (1.7
+        # million for cg at m = 256).
+        out["profile"] = profile_solve(
+            lambda: run(opts), os.path.join(profile, f"profile_{label}_"
+                                            f"graph.txt"), wd)
+    return out, first[0]
+
+
+def is_subsequence(part, whole):
+    """Whether ``part``'s items appear in ``whole`` in the same order."""
+    it = iter(whole)
+    return all(any(x == y for y in it) for x in part)
+
+
+def ipm_of(mod):
+    """(dat, backend, opts, iteration, init) of the IPM call that ``mod``'s
+    last solve made (:func:`solve_model`)."""
+    from tulip_tpu_torch.ipm import hsd, mpc
+
+    _, fig, _, (dat, backend, opts) = mod.smoke_ipm[-1]
+    check(fig.get("built") is not None, f"{backend.name}: the Model's "
+          f"solve did not run as the device program")
+    if isinstance(opts, mpc.MPCOptions):
+        return (dat, backend, opts, mpc.mpc_iteration, mpc.init_state_mpc,
+                fig)
+
+    def init(d, b):
+        return hsd.init_state(d, b, mehrotra=opts.MehrotraStart)
+    return dat, backend, opts, hsd.hsd_iteration, init, fig
+
+
+def phase_krylov_device(krylov_run, schur_run, device, card, profile):
+    """Phase 15: the 13 Krylov backends (15a-15c) and ``"schur"`` (15d)
+    through the device program, each beside ``HostLoop=True`` in this
+    process."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tulip_tpu_torch.ipm import graph
+    from tulip_tpu_torch.ipm.hsd import HSDOptions, hsd_solve
+    from tulip_tpu_torch.kkt import SchurK1Backend
+    from tulip_tpu_torch.parallel import (init_comm, make_block_angular,
+                                          shard_scenarios)
+    from tulip_tpu_torch.parallel.dryrun import VOLUME_DIMS, two_stage_arrays
+    from tulip_tpu_torch.status import TerminationStatus
+
+    t15 = time.perf_counter()
+    golden, e2e, (A, kstate, one) = krylov_run
+    res = {}
+
+    # -- 15a: the 13 backends on the transportation LP ---------------------
+    for name, (mod, _, _) in golden.items():
+        label = f"15a_{name}"
+        dat, be, opts, iteration, init, _ = ipm_of(mod)
+        out, final = program_twin(label, dat, be, opts, iteration, init,
+                                  warm=0)
+        st = TerminationStatus(out["status"]).name
+        check(st == KRYLOV_STATUS[name], f"{label}: {st}, the JAX "
+              f"package's {KRYLOV_STATUS[name]}")
+        res[label] = out
+        log(f"[15a] transportation LP, {name}: {st} through the device "
+            f"program, bit for bit with HostLoop=True; each of the host "
+            f"loop's {out['host_loop_solves']} Krylov solves among the "
+            f"program's {out['solves']} with its trips and host reads; "
+            f"host reads a solve {out.get('reads_a_solve', 0):.2f} (host "
+            f"loop {out.get('host_loop_reads_a_solve', 0):.2f}); "
+            f"{json.dumps(out)}")
+
+    # -- 15b: the end-to-end runs -------------------------------------------
+    for (m, name), (mod, _, _, _) in e2e.items():
+        if name == "dense":
+            continue
+        label = f"15b_{name}_{m}"
+        dat, be, opts, iteration, init, fig = ipm_of(mod)
+        # Phase 11a's solve built this program: it is replayed (or built
+        # again, if the cache let it go) and its build figures are 11a's.
+        out, _ = program_twin(label, dat, be, opts, iteration, init, warm=0,
+                              built=fig, profile=profile)
+        dmod = e2e[m, "dense"][0]
+        dense_wall, dense_it = dmod.smoke_ipm[-1][2], dmod.barrier_iterations
+        out["dense_ms_an_iteration"] = dense_wall / max(dense_it, 1) * 1e3
+        res[label] = out
+        log(f"[15b] multiperiod_lp({m}) {name}: {out['iterations']} "
+            f"iterations, bit for bit with HostLoop=True; "
+            f"{out['ms_an_iteration']:.3f} ms an iteration warm (host loop "
+            f"{out['host_loop_ms_an_iteration']:.3f}, 'dense' "
+            f"{out['dense_ms_an_iteration']:.3f}); "
+            f"{out.get('ms_a_trip', 0):.4f} ms of IPM wall a trip (host "
+            f"loop {out.get('host_loop_ms_a_trip', 0):.4f}); masked "
+            f"correction trips {out['masked_trips']} of {out['trips']}; "
+            f"{json.dumps(out)}; {card}")
+
+    # -- 15c: one solve at full width as a loop item ------------------------
+    bound = 2 * A.numel() * A.element_size() / PEAK_BYTES_S * 1e3
+    for name, (be, st, (hwall, htrips, hdx, hdy)) in one.items():
+        zeros = (torch.zeros_like(hdx), torch.zeros_like(hdy))
+
+        def solve_once():
+            return graph.run(("15c", name), (st,) + tuple(kstate[3:]),
+                             zeros, lambda d, s: be.solve(*d),
+                             lambda s: torch.zeros((), dtype=torch.bool,
+                                                   device=A.device))
+        graph.clear_device_programs()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dx, dy = solve_once()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            fg = dict(graph.LAST)
+        check(same_bits(dx.cpu(), hdx.cpu()) and same_bits(dy.cpu(),
+                                                          hdy.cpu())
+              and fg["trips"] == htrips.trips,
+              f"15c {name}: the loop item's solve ({fg['trips']} trips) "
+              f"differs from the host loop's ({htrips.trips})")
+        w = statistics.median(walls[1:])
+        res[f"15c_{name}"] = dict(
+            trips=fg["trips"], reads=fg["loop_reads"],
+            host_loop_reads=htrips.syncs, ms=w * 1e3,
+            ms_a_trip=w / fg["trips"] * 1e3,
+            host_loop_ms_a_trip=hwall / htrips.trips * 1e3,
+            bound_ms_a_trip=bound if name == "cg" else None,
+            chunk_graphs=fg["chunk_graphs"], chunk_nodes=fg["chunk_nodes"],
+            first_s=walls[0])
+        log(f"[15c] one {name} solve on multiperiod_lp(4096)'s A as a loop "
+            f"item: {fg['trips']} trips, bit for bit with the host loop, "
+            f"{w / fg['trips'] * 1e3:.4f} ms a trip warm (host loop "
+            f"{hwall / htrips.trips * 1e3:.4f}), {fg['loop_reads']} host "
+            f"reads (host loop {htrips.syncs}); "
+            + (f"a cg trip reads A twice: {bound:.4f} ms at "
+               f"{PEAK_BYTES_S / 1e12:.2f} TB/s; " if name == "cg" else "")
+            + f"{json.dumps(res[f'15c_{name}'])}; {card}")
+    graph.clear_device_programs()
+    del one, A
+
+    # -- 15d: "schur" ---------------------------------------------------------
+    opts = HSDOptions()
+
+    def schur_init(d, b):
+        from tulip_tpu_torch.ipm.hsd import init_state
+        return init_state(d, b, mehrotra=opts.MehrotraStart)
+
+    from tulip_tpu_torch.ipm.hsd import hsd_iteration
+    outs = {}
+    for label, K in (("15d_12a", SCHUR_K), ("15d_12b", SCHUR_BIG_K)):
+        dat = make_block_angular(*two_stage_arrays(K, 11, VOLUME_DIMS),
+                                 device=device)
+        out, final = program_twin(label, dat, SchurK1Backend(), opts,
+                                  hsd_iteration, schur_init)
+        check(out["status"] == OPTIMAL, f"{label}: status {out['status']}")
+        it = out["iterations"]
+        res[label] = out
+        outs[label] = (dat, final)
+        log(f"[15d] {label[4:]} (K = {K}): OPTIMAL in {it} iterations "
+            f"through the device program ({out['segments']} segment(s), "
+            f"{out['host_ops_a_pass']} host operations a pass), bit for bit "
+            f"with HostLoop=True; {out['ms_an_iteration']:.3f} ms an "
+            f"iteration warm (host loop "
+            f"{out['host_loop_ms_an_iteration']:.3f}); peak "
+            f"{out['peak_mb']:.1f} MB (host loop "
+            f"{out['host_loop_peak_mb']:.1f}); {json.dumps(out)}; {card}")
+        if K == SCHUR_BIG_K:
+            del dat, final
+            outs.pop(label)
+    dat, final = outs["15d_12a"]
+    with tempfile.TemporaryDirectory() as tmp:
+        comm = init_comm(SCHUR_GROUP, 0, 1, os.path.join(tmp, "store"))
+        try:
+            graph.clear_device_programs()
+            sh = shard_scenarios(dat, comm)
+            hsd_solve(sh, SchurK1Backend(), opts)
+            comm.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out1 = hsd_solve(sh, SchurK1Backend(), opts)
+            torch.cuda.synchronize()
+            w1 = time.perf_counter() - t0
+            fg = dict(graph.LAST)
+            counts1, bytes1 = dict(comm.counts), comm.nbytes
+            graph.clear_device_programs()
+        finally:
+            dist.destroy_process_group()
+    it = int(out1.niter[0])
+    check(same_tensor_bits(out1, final) and fg["segments"] == 1
+          and fg["host_ops_a_pass"] == 0,
+          f"15d: the {SCHUR_GROUP} group of one through the device program "
+          f"({fg['segments']} segments, {fg['host_ops_a_pass']} host "
+          f"operations a pass) differs from 12a's unsharded state")
+    res["15d_group_of_one"] = dict(iterations=it, wall_s=w1,
+                               ms_an_iteration=w1 / it * 1e3,
+                               nodes_a_pass=fg["nodes_a_pass"],
+                               segments=fg["segments"])
+    log(f"[15d] 12c's {SCHUR_GROUP} group of one, captured whole (1 segment, "
+        f"{fg['nodes_a_pass']} nodes a pass): bit for bit with 12a's "
+        f"state; warm {w1 / it * 1e3:.3f} ms an iteration; "
+        f"{comm_line(counts1, bytes1, it)}")
+    ranks = schur_run["ranks"]
+    for k, r in enumerate(ranks):
+        g, h = r["schur"], r["schur_host"]
+        check(g["graph"].get("built") is True and not h["graph"],
+              f"15d rank {k}: the Gloo job's solves did not take their "
+              f"routes")
+        differ = [f for f in g["state"]
+                  if g["state"][f].tobytes() != h["state"][f].tobytes()]
+        check(not differ and g["niter"] == h["niter"],
+              f"15d rank {k}: the device program's state differs from the "
+              f"host loop's in {differ}")
+    a, b = (r["schur"]["state"] for r in ranks)
+    check(all(a[f].tobytes() == b[f].tobytes() for f in a),
+          "15d: the ranks' program states differ")
+    g, h, w = (ranks[0][k] for k in ("schur", "schur_host", "schur_warm"))
+    gg = g["graph"]
+    check(g["niter"] == res["15d_12a"]["iterations"]
+          and w["graph"].get("built") is False,
+          f"15d: {g['niter']} iterations over Gloo, 12a's "
+          f"{res['15d_12a']['iterations']}; or the warm solve was built "
+          f"anew")
+    res["15d_gloo_two"] = dict(
+        iterations=g["niter"], first_s=g["wall"], warm_s=w["wall"],
+        ms_an_iteration=w["wall"] / w["niter"] * 1e3,
+        host_loop_ms_an_iteration=h["wall"] / h["niter"] * 1e3,
+        segments=gg["segments"], host_ops_a_pass=gg["host_ops_a_pass"],
+        nodes_a_pass=gg["nodes_a_pass"], capture_s=gg["capture_s"],
+        instantiate_s=gg["instantiate_s"])
+    log(f"[15d] 12c's two Gloo processes through the segmented program: "
+        f"{g['niter']} iterations (12a's {res['15d_12a']['iterations']}), "
+        f"ranks equal bit for bit and each equal to its host loop; warm "
+        f"{w['wall'] / w['niter'] * 1e3:.3f} ms an iteration (host loop "
+        f"{h['wall'] / h['niter'] * 1e3:.3f}); "
+        f"{gg['segments']} segments and {gg['host_ops_a_pass']} host "
+        f"operations a pass; rank 0 warm program: "
+        f"{comm_line(w['counts'], w['nbytes'], w['niter'])}; host loop: "
+        f"{comm_line(h['counts'], h['nbytes'], h['niter'])}; "
+        f"{json.dumps(res['15d_gloo_two'])}")
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s; {card}")
     return res
 
 
@@ -2793,15 +3242,16 @@ def main(argv=None):
         f"{cold.niter.double().mean().item():.4f}; warm wall {wall9:.4f} s; "
         f"launches {n9}")
     t11 = time.perf_counter()
-    phase_krylov(device, count, big, card, args.profile)
+    krylov_run = phase_krylov(device, count, big, card, args.profile)
     phase_explicit_minv(device, count, (raws, dats, opts, refs_slice),
                         iters.mean(), small, ref_small)
     res = phase_matmul_precision(device, card)
     check(res["high"] <= 10 * res["highest"], f"'high' residual "
           f"{res['high']:.3e} over 10x 'highest''s {res['highest']:.3e}")
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
-    phase_distributed(device, count, card, (raws, dats, opts, refs_slice),
-                      iters, wall, args.profile)
+    schur_run = phase_distributed(device, count, card,
+                                  (raws, dats, opts, refs_slice), iters,
+                                  wall, args.profile)
     phase_device_program(device, count, card, (raws, dats, opts), fused,
                          warm_be, out_f, dats2, probs, big, small,
                          args.profile)
@@ -2821,6 +3271,11 @@ def main(argv=None):
          k2runs["staircase_lp(2048, dense_cols=24, dense_scale=1.0)"][0]),
         ("14k_extended", m_ext), ("14l_dense_mixed", m_mix),
         ("14m_extended_dd", m_dd)], count, card, args.profile)
+    with count.phase() as n15:
+        phase_krylov_device(krylov_run, schur_run, device, card,
+                            args.profile)
+    log(f"  phase 15 launches of our kernels {n15} (its routes run none)")
+    del krylov_run, schur_run
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

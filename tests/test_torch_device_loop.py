@@ -33,16 +33,13 @@ from tulip_tpu_torch.ipm.hsd import (HSDOptions, hsd_solve, hsd_solve_device,
                                      init_state)
 from tulip_tpu_torch.ipm.mpc import MPCOptions, mpc_solve, mpc_solve_device
 from tulip_tpu_torch.kkt import (DenseK1Backend, GramK1Backend,
-                                 SmallK1Backend, available_backends)
+                                 SmallK1Backend)
 from tulip_tpu_torch.status import TerminationStatus
 
 torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent / "data"
 OPT = int(TerminationStatus.OPTIMAL)
-DEVICE_BACKENDS = {"dense", "dense-pallas", "pallas-small", "banded",
-                   "sparse", "sparse-smw", "dense-ldl", "sparse-ldl",
-                   "extended", "extended-dd", "dense-mixed"}
 
 
 def mixed_lps(seed):
@@ -337,36 +334,22 @@ def test_device_backends_take_the_device_program(backend, programs):
     assert_same_bits(dev, host)
 
 
-@pytest.mark.parametrize("name", sorted(set(available_backends())
-                                        - DEVICE_BACKENDS))
-def test_other_backends_stay_on_the_host_loop(name, programs):
-    """Every other backend name runs on the host-driven loop, and the
-    device entry points refuse it before any work."""
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        backend = available_backends()[name]()
-    assert backend.device_loop is False
-    dat = stack_lps_host(random_lps(4, B=1), device="cpu",
-                         dtype=torch.float64)
-    for entry in (hsd_solve_device, mpc_solve_device):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            entry(backend, HSDOptions(), dat)
-    assert programs == []
-
-
 @pytest.mark.parametrize("name", ["sqd-minres", "lsqr", "cg"])
 def test_host_loop_backends_solve_without_a_program(name, programs):
-    """A solve through a backend without ``device_loop`` runs and never
-    builds a device program."""
+    """A default solve through a backend that once ran on the host-driven
+    loop only (the Krylov backends) builds a device program now, and ends
+    in the state that ``HostLoop=True`` gives, bit for bit."""
     from tulip_tpu_torch.kkt import make_backend
 
     dat = stack_lps_host(random_lps(6, B=2), device="cpu",
                          dtype=torch.float64)
     out = batched_hsd_solve(make_backend(name), HSDOptions(), dat)
     assert (out.status == OPT).all()
-    assert programs == []
+    assert programs == [name] and graph.LAST["built"]
+    host = batched_hsd_solve(make_backend(name), HSDOptions(HostLoop=True),
+                             dat)
+    assert programs == [name]
+    assert_same_bits(out, host)
 
 
 # ---------------------------------------------------------------------------

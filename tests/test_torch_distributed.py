@@ -108,6 +108,8 @@ def two():
     cases, on 2 processes."""
     cases = regime_cases(2, volume_K=4) + [
         ("schur", "schur", dict(arrays=SCHUR, state=True)),
+        ("schur_host", "schur", dict(arrays=SCHUR, state=True,
+                                     host_loop=True)),
         ("uneven_k", "shard_error", dict(arrays=UNEVEN)),
         ("padded", "schur", dict(arrays=UNEVEN, pad_to=4)),
         ("batch", "batch", BATCH)]
@@ -165,6 +167,26 @@ def test_ranks_end_bit_identical(two):
     assert sorted(a) == sorted(b) and "kkt.Ls" in a
     for k in a:
         assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_device_program_equals_host_loop_on_every_rank(two):
+    """The sharded Schur solve through the device program (each pass step
+    by step on the CPU, the Gloo collectives run in it) and through the
+    host-driven loop: each rank's final state equal bit for bit, and the
+    program's collectives counted, one n0×n0 all-reduce to each
+    factorization attempt."""
+    for r in two:
+        dev, host = r["schur"], r["schur_host"]
+        assert dev["graph"]["built"] and not host["graph"]
+        assert dev["graph"]["passes"] == dev["niter"] + 1
+        assert (dev["status"], dev["niter"]) == (host["status"],
+                                                 host["niter"])
+        assert sorted(dev["state"]) == sorted(host["state"])
+        for k in dev["state"]:
+            assert dev["state"][k].tobytes() == host["state"][k].tobytes(), k
+        for res in (dev, host):
+            _, schur, attempts = collective_signature(res)
+            assert schur == attempts >= res["niter"]
 
 
 def test_real_volume_matches_dense_with_the_schur_signature(two):

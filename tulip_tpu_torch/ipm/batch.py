@@ -4,10 +4,11 @@ Counterpart of ``tulip_tpu/ipm/batch.py``. The JAX package vmaps the whole
 solve into one program; here every tensor already carries the lane axis,
 and :func:`batched_hsd_solve`, :func:`batched_hsd_resolve` and
 :func:`batched_mpc_solve` run :func:`.hsd.solve`, which stops once no lane
-is UNKNOWN: as the device program (``ipm/graph.py``: one captured CUDA
-graph a pass, one host read a pass; a second solve of the same shapes,
-such as a warm re-solve, replays the cached graph) for a backend that
-declares ``device_loop``, else on the host-driven loop.
+is UNKNOWN: as the device program (``ipm/graph.py``: one captured pass,
+one host read a pass; a second solve of the same shapes, such as a warm
+re-solve, replays the cached pass) for a backend that declares
+``device_loop`` (every backend of the port), else on the host-driven
+loop.
 :func:`shard_batch` splits a batch over the processes of a group and
 :func:`gather_lanes` puts the final states back together; the solve in
 between needs no collective (its lanes are independent).

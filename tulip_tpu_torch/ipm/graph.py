@@ -1,34 +1,53 @@
-"""The device program: a whole IPM solve as replays of one captured CUDA
-graph.
+"""The device program: a whole IPM solve as replays of one captured pass.
 
 Counterpart of the JAX package's ``hsd_solve_device`` / ``mpc_solve_device``
 (``tulip_tpu/ipm/hsd.py:564``, ``tulip_tpu/ipm/mpc.py:435``) and of the
 vmapped ``lax.while_loop`` behind ``tulip_tpu/ipm/batch.py:134-195``. There
 the whole solve is one XLA program: an outer while-loop over passes and,
 inside a pass, the bounded while-loops of the regularization bumps
-(``hsd.py:321-339``) and of the centrality corrections (``hsd.py:385-400``).
-Under vmap every one of them runs its body for every lane while any lane
-needs it, and a lane whose condition is false keeps its carry.
+(``hsd.py:321-339``) and of the centrality corrections (``hsd.py:385-400``),
+and the Krylov solvers' own while-loops (``tulip_tpu/kkt/krylov.py:104,
+135``). Under vmap every one of them runs its body for every lane while any
+lane needs it, and a lane whose condition is false keeps its carry.
 
 The card's torch (2.11) has no CUDA-graph conditional nodes, so nothing in
 a graph can branch on the device. Here:
 
-- :func:`bounded_while` runs such a per-lane loop. The host-driven loop
-  tests on the host before each trip and stops at the first trip that no
-  lane needs (one sync a trip). In the device program it runs the loop's
-  bound of trips, every one masked per lane: a trip that no lane needs
-  leaves every lane's carry as it was, so the result is the same bit for
-  bit, at the cost of the trips' work (3 factorizations a pass for the
-  bumps, ``CorrectionLimit`` solves for the corrections);
+- :func:`bounded_while` runs a per-lane loop with a small bound. The
+  host-driven loop tests on the host before each trip and stops at the
+  first trip that no lane needs (one sync a trip). In the device program it
+  runs the loop's bound of trips, every one masked per lane: a trip that no
+  lane needs leaves every lane's carry as it was, so the result is the same
+  bit for bit, at the cost of the trips' work (3 factorizations a pass for
+  the bumps, ``CorrectionLimit`` solves for the corrections);
+- :func:`loop` runs a loop whose bound is too large to run out (a Krylov
+  solve: up to ``maxiter_factor``·m trips) in chunks of trips, with one
+  host read of its stopping mask before each chunk: the reads of the
+  host-driven loop, which tests every ``every`` trips, so the trips run and
+  the bits are its own;
+- :func:`host_op` runs an operation that must run on the host (a Gloo
+  collective of CUDA tensors, staged through host memory);
 - :func:`run` captures one pass (one IPM iteration, masked to the lanes
-  still running, written into static buffers) as a CUDA graph, once per
-  key, and replays it, reading between every :data:`K_PASSES` replays
-  whether any lane is still running, through a pinned buffer and an
-  event. A pass replayed after every lane has finished changes nothing:
-  a finished lane keeps its state.
+  still running, written into static buffers) once per key, and replays
+  it, reading between every :data:`K_PASSES` replays whether any lane is
+  still running, through a pinned buffer and an event. A pass replayed
+  after every lane has finished changes nothing: a finished lane keeps its
+  state.
+
+A captured pass is a *script*, replayed item by item in order: a captured
+segment (a CUDA graph), a loop (its first, steady and tail chunks, each a
+CUDA graph of up to ``every`` trips, replayed with a host read before each
+chunk), or a host operation. The pass's Python runs once, under capture;
+at a loop or a host operation the recorder ends the current graph, adds the
+item and begins the next graph in the same memory pool. Every graph of a
+pass is captured in the order it replays first, and what a later graph
+reads lives at an address that stays: a loop's carry and mask are static
+tensors that every chunk writes in place, a host operation writes a static
+output, and the script holds them. A pass with neither is one graph.
 
 On the CPU there is no graph: the same pass runs step by step over the same
-static buffers, which is the plain version of the program.
+static buffers, its loops in the same chunks with the same host reads, its
+host operations eagerly. That is the plain version of the program.
 """
 
 from __future__ import annotations
@@ -57,12 +76,28 @@ CAPTURES = 0
 # (eager, on the static buffers, which are loaded again after); they count
 # in no kernel's KERNEL_LAUNCHES.
 WARMUP_LAUNCHES = 0
-# The last solve through a device program: passes replayed, host reads,
-# whether the program was built for it, the seconds of its warm-up pass, of
-# its capture and of its instantiation (0 when it came from the cache), the
-# seconds of the replays and reads, the nodes of the captured pass (all
-# launches and copies; None on the CPU) and the launches of the port's
-# kernels among them, by kernel.
+# Since the process started, on the host-driven loop and in device programs
+# alike (warm-ups and captures excluded): loops run (one a Krylov solve),
+# their trips, the host reads of their stopping masks, the chunk graphs
+# replayed, and host operations run.
+LOOPS = 0
+LOOP_TRIPS = 0
+LOOP_READS = 0
+CHUNK_REPLAYS = 0
+HOST_OPS = 0
+# None, or a list to which each loop counted above appends its (trips,
+# host reads), in the order the loops ran.
+LOOP_LOG = None
+# The last solve through a device program: passes replayed, host reads of
+# the pass's end (``syncs``) and of its loops, whether the program was built
+# for it, the seconds of its warm-up pass, of its capture and of its
+# instantiation (0 when it came from the cache), the seconds of the replays
+# and reads; the script a pass (segments, loops, chunk graphs, host
+# operations; None on the CPU, where loops and host operations are counted
+# as they run), the nodes of the segments summed over a pass and of the
+# chunk graphs (all launches and copies; None on the CPU) and the launches
+# of the port's kernels in the segments, by kernel; the loops, chunk
+# replays, trips and host operations of the solve.
 LAST: dict = {}
 
 _CACHE: "OrderedDict[Any, Program]" = OrderedDict()
@@ -75,19 +110,33 @@ class _Ctx:
     warmup = False
     # Launches recorded while capturing: (module, shape, counter increments).
     captured: list = None
+    # Collectives recorded while capturing: (Comm, (op, numel), bytes).
+    collectives: list = None
+    # The recorder of the pass being captured.
+    recorder: "_Recorder" = None
 
 
 _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def _device_mode(warmup: bool = False, captured: list = None):
-    saved = (_CTX.mode, _CTX.warmup, _CTX.captured)
+def _device_mode(warmup: bool = False, captured: list = None,
+                 recorder: "_Recorder" = None):
+    saved = (_CTX.mode, _CTX.warmup, _CTX.captured, _CTX.collectives,
+             _CTX.recorder)
     _CTX.mode, _CTX.warmup, _CTX.captured = "device", warmup, captured
+    _CTX.collectives, _CTX.recorder = None, recorder
     try:
         yield
     finally:
-        _CTX.mode, _CTX.warmup, _CTX.captured = saved
+        (_CTX.mode, _CTX.warmup, _CTX.captured, _CTX.collectives,
+         _CTX.recorder) = saved
+
+
+def in_device_program() -> bool:
+    """Whether the caller runs inside a device program's pass (captured,
+    its warm-up, or step by step on the CPU)."""
+    return _CTX.mode == "device"
 
 
 def bounded_while(cond: Callable, body: Callable, carry, trips: int):
@@ -107,13 +156,68 @@ def bounded_while(cond: Callable, body: Callable, carry, trips: int):
     return carry
 
 
+def count_loop(trips: int, reads: int) -> None:
+    """Count one loop that ran (on the host-driven loop or in a device
+    program): its trips and host reads."""
+    global LOOPS, LOOP_TRIPS, LOOP_READS
+    LOOPS += 1
+    LOOP_TRIPS += trips
+    LOOP_READS += reads
+    if LOOP_LOG is not None:
+        LOOP_LOG.append((trips, reads))
+
+
+def loop(trip: Callable, carry: tuple, active: torch.Tensor, maxiter: int,
+         every: int) -> None:
+    """A loop of a device program's pass: ``trip(k)`` runs trip ``k`` in
+    place on the tensors of ``carry`` and on ``active``, the per-lane mask
+    of the lanes still looping (a lane outside it must keep its carry). Trips
+    run in chunks of ``every``, up to ``maxiter`` in all, each chunk after
+    one host read of whether any lane is active, stopping at the first
+    read that finds none: the host-driven loop's reads before trips 0,
+    ``every``, 2·``every``, ... . Under capture the loop becomes an item of
+    the pass's script; otherwise (the CPU, a warm-up) it runs now."""
+    global CHUNK_REPLAYS
+    if maxiter <= 0:
+        return
+    if _CTX.recorder is not None:
+        _CTX.recorder.loop(trip, carry + (active,), active, maxiter, every)
+        return
+    trips = reads = chunks = 0
+    for s in range(0, maxiter, every):
+        reads += 1
+        if not bool(active.any()):
+            break
+        for k in range(s, min(s + every, maxiter)):
+            trip(k)
+            trips += 1
+        chunks += 1
+    if not _CTX.warmup:
+        count_loop(trips, reads)
+        CHUNK_REPLAYS += chunks
+
+
+def host_op(fn: Callable, t: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """``fn`` of a host copy of ``t`` (a CUDA tensor), back on ``t``'s
+    device: ``fn`` takes a CPU tensor and returns a CPU tensor of ``shape``
+    and ``dtype``. Under capture it becomes an item of the pass's script,
+    which at each replay copies ``t`` into pinned host memory, runs ``fn``
+    and copies its result into a static output, which it returns now."""
+    global HOST_OPS
+    if _CTX.recorder is not None:
+        return _CTX.recorder.host_op(fn, t, shape, dtype)
+    if not _CTX.warmup:
+        HOST_OPS += 1
+    return fn(t.cpu()).to(t.device)
+
+
 def count_launch(module, shape, **incs) -> None:
     """Count one launch of one of the port's kernels, called by its wrapper
     in ``ops/`` where it launches. Outside a capture the increments
     ``incs`` are added to ``module``'s counters and ``shape`` to its
     ``SHAPES``. Under capture the launch is a node of the pass
     (``module.CAPTURED_LAUNCHES``), credited to the counters as one launch
-    for every replay of the pass once the solve ends (exact: a graph
+    for every replay of its graph once the solve ends (exact: a graph
     without conditional nodes runs every node on every replay). In a
     warm-up it counts in :data:`WARMUP_LAUNCHES` only."""
     global WARMUP_LAUNCHES
@@ -126,6 +230,17 @@ def count_launch(module, shape, **incs) -> None:
         _credit(module, shape, incs, 1)
 
 
+def count_collective(comm, key: tuple, nbytes: int) -> None:
+    """Count one collective of ``comm`` (:class:`..parallel.comm.Comm`):
+    ``key`` is ``(op, numel)``. Under capture it is credited once for every
+    replay of the pass when the solve ends, as :func:`count_launch` credits
+    a kernel; a warm-up's collectives count nowhere."""
+    if _CTX.collectives is not None:
+        _CTX.collectives.append((comm, key, nbytes))
+    elif not _CTX.warmup:
+        _credit_collective(comm, key, nbytes, 1)
+
+
 def _credit(module, shape, incs: dict, times: int) -> None:
     if times <= 0:
         return
@@ -133,6 +248,12 @@ def _credit(module, shape, incs: dict, times: int) -> None:
         setattr(module, name, getattr(module, name) + v * times)
     if shape is not None:
         module.SHAPES.add(shape)
+
+
+def _credit_collective(comm, key: tuple, nbytes: int, times: int) -> None:
+    if times > 0:
+        comm.counts[key] += times
+        comm.nbytes += nbytes * times
 
 
 def assign(dst, src, frozen: frozenset = frozenset()) -> None:
@@ -210,9 +331,133 @@ def _graph_nodes(g) -> int:
     return n.value
 
 
+class _Graph:
+    """A captured graph of the script: a segment of the pass or a chunk of
+    a loop, with the launches and collectives recorded in it."""
+
+    def __init__(self, trips: int = 0):
+        # keep_graph: instantiated apart, after its nodes are counted.
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.trips = trips
+        self.nodes = 0
+        self.captured: list = []
+        self.collectives: list = []
+        self.replays = 0
+
+    def capture(self, recorder: "_Recorder", fn: Callable) -> None:
+        _CTX.captured, _CTX.collectives = self.captured, self.collectives
+        self.graph.capture_begin(pool=recorder.pool)
+        try:
+            fn()
+        finally:
+            self.graph.capture_end()
+            _CTX.captured = _CTX.collectives = None
+        self.nodes = _graph_nodes(self.graph)
+
+    def run(self, prog: "Program") -> None:
+        self.graph.replay()
+        self.replays += 1
+
+
+class _Segment(_Graph):
+    pass
+
+
+class _Loop:
+    """A loop item: chunk graphs replayed after a host read each."""
+
+    def __init__(self, hold: tuple, active, maxiter, every, chunks: dict):
+        # The static tensors that the chunks write in place and that later
+        # segments read: held, so that the pool never hands them out.
+        self.hold = hold
+        self.active, self.maxiter, self.every = active, maxiter, every
+        self.chunks = chunks            # (first chunk, trips) -> _Graph
+
+    def run(self, prog: "Program") -> None:
+        global CHUNK_REPLAYS
+        trips = reads = 0
+        for s in range(0, self.maxiter, self.every):
+            reads += 1
+            if not prog.read(self.active.any()):
+                break
+            g = self.chunks[s == 0, min(self.every, self.maxiter - s)]
+            g.run(prog)
+            trips += g.trips
+            CHUNK_REPLAYS += 1
+        count_loop(trips, reads)
+
+
+class _HostOp:
+    """A host operation item: its input staged through pinned memory, its
+    result copied into a static output."""
+
+    def __init__(self, fn, t, out):
+        self.fn, self.t, self.out = fn, t, out
+        self.pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+    def run(self, prog: "Program") -> None:
+        global HOST_OPS
+        self.pinned.copy_(self.t)
+        self.out.copy_(self.fn(self.pinned))
+        HOST_OPS += 1
+
+
+class _Recorder:
+    """Cuts the pass being captured into a script of segments, loops and
+    host operations, every graph in one memory pool."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.script: list = []
+        self.graphs: List[_Graph] = []
+        self.segment = None
+
+    def begin(self) -> None:
+        self.segment = _Segment()
+        seg = self.segment
+        _CTX.captured, _CTX.collectives = seg.captured, seg.collectives
+        seg.graph.capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        seg, self.segment = self.segment, None
+        if seg is None:
+            return
+        try:
+            seg.graph.capture_end()
+        finally:
+            _CTX.captured = _CTX.collectives = None
+        seg.nodes = _graph_nodes(seg.graph)
+        # An empty segment (two items in a row) is kept alive, not run.
+        self.graphs.append(seg)
+        if seg.nodes or seg.captured or seg.collectives:
+            self.script.append(seg)
+
+    def loop(self, trip, hold, active, maxiter: int, every: int) -> None:
+        self.end()
+        chunks: dict = {}
+        for s in range(0, maxiter, every):
+            kind = (s == 0, min(every, maxiter - s))
+            if kind not in chunks:
+                g = _Graph(trips=kind[1])
+                g.capture(self, lambda s=s, n=kind[1]: [
+                    trip(k) for k in range(s, s + n)])
+                chunks[kind] = g
+                self.graphs.append(g)
+        self.script.append(_Loop(hold, active, maxiter, every, chunks))
+        self.begin()
+
+    def host_op(self, fn, t, shape, dtype) -> torch.Tensor:
+        self.end()
+        out = torch.empty(shape, dtype=dtype, device=t.device)
+        self.script.append(_HostOp(fn, t, out))
+        self.begin()
+        return out
+
+
 class Program:
-    """One pass of a solve over static buffers: a captured CUDA graph on
-    the card, the pass run step by step on the CPU."""
+    """One pass of a solve over static buffers: a captured script of CUDA
+    graphs (and loops and host operations) on the card, the pass run step
+    by step on the CPU."""
 
     def __init__(self, dat, state, step: Callable, live: Callable):
         global CAPTURES
@@ -229,14 +474,14 @@ class Program:
         # Positions of the state leaves that a pass returns as they came
         # (a structured state's plan: index tensors, constant tiles).
         self.passthrough: frozenset = frozenset()
-        self.cuda = dat.b.device.type == "cuda"
-        self.graph = None
-        self.captured: List[Tuple[Any, Any, dict]] = []
+        device = next(x for x in leaves(dat) if torch.is_tensor(x)).device
+        self.cuda = device.type == "cuda"
+        self.script: list = []
+        self.graphs: List[_Graph] = []
         self.warmup_s = self.capture_s = self.instantiate_s = 0.0
-        self.nodes = None
         self.load(dat, state)
         if self.cuda:
-            self.flag = torch.zeros((), dtype=torch.bool, device=dat.b.device)
+            self.flag = torch.zeros((), dtype=torch.bool, device=device)
             self.host = torch.zeros((), dtype=torch.bool).pin_memory()
             self.event = torch.cuda.Event()
             self._capture(dat, state)
@@ -261,7 +506,8 @@ class Program:
         # Warm-up: one pass, eagerly, on the static buffers, which are then
         # loaded again, so that every launch path the pass takes has run
         # once before the capture (nvcc builds and library loads, CUDA's
-        # lazy module loading, cuBLAS/cuSOLVER handles and workspaces).
+        # lazy module loading, cuBLAS/cuSOLVER handles and workspaces, an
+        # NCCL communicator).
         t0 = time.perf_counter()
         with _device_mode(warmup=True):
             self._pass(self.state)
@@ -269,39 +515,94 @@ class Program:
         torch.cuda.synchronize()
         self.warmup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        # keep_graph: instantiated apart, after its nodes are counted.
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        captured: list = []
-        with _device_mode(captured=captured):
-            with torch.cuda.graph(g):
+        # As torch.cuda.graph does: a side stream, the cache emptied, and
+        # no gc.collect() (torch's is off by default: on a large heap a
+        # full collection costs about a second a capture).
+        torch.cuda.empty_cache()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        rec = _Recorder()
+        with torch.cuda.stream(stream), _device_mode(recorder=rec):
+            rec.begin()
+            try:
                 self._pass(self.state)
+            finally:
+                rec.end()
+        torch.cuda.current_stream().wait_stream(stream)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
-        self.nodes = _graph_nodes(g)
         t0 = time.perf_counter()
-        g.instantiate()
+        for g in rec.graphs:
+            if g.nodes:
+                g.graph.instantiate()
         torch.cuda.synchronize()
         self.instantiate_s = time.perf_counter() - t0
-        self.graph, self.captured = g, captured
+        self.script, self.graphs = rec.script, rec.graphs
+
+    @property
+    def nodes(self):
+        """Nodes of the pass's segments, summed (None on the CPU)."""
+        if not self.cuda:
+            return None
+        return sum(i.nodes for i in self.script if isinstance(i, _Segment))
 
     def replay(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
+        if self.cuda:
+            for item in self.script:
+                item.run(self)
         else:
             with _device_mode():
                 self._pass(self.state)
 
-    def running(self) -> bool:
-        """Whether any lane is still running: one host sync, through a
-        pinned buffer and an event on the card."""
-        live = self.live_fn(self.state)
-        if not self.cuda:
-            return bool(live)
-        self.flag.copy_(live)
+    def read(self, flag: torch.Tensor) -> bool:
+        """One host read of a 0-d bool on the card, through a pinned
+        buffer and an event."""
+        self.flag.copy_(flag)
         self.host.copy_(self.flag, non_blocking=True)
         self.event.record()
         self.event.synchronize()
         return bool(self.host)
+
+    def running(self) -> bool:
+        """Whether any lane is still running: one host read."""
+        live = self.live_fn(self.state)
+        if not self.cuda:
+            return bool(live)
+        return self.read(live)
+
+    def credit(self, passes: int) -> dict:
+        """Credit the kernels and collectives recorded while capturing,
+        once for every replay of their graphs in this solve (the segments:
+        ``passes``); the launches of the port's kernels a pass, by
+        kernel."""
+        per_pass: dict = {}
+        for g in self.graphs:
+            times = passes if isinstance(g, _Segment) else g.replays
+            for module, shape, incs in g.captured:
+                _credit(module, shape, incs, times)
+                if isinstance(g, _Segment):
+                    name = module.__name__.rsplit(".", 1)[-1]
+                    per_pass[name] = per_pass.get(name, 0) + 1
+            for comm, key, nbytes in g.collectives:
+                _credit_collective(comm, key, nbytes, times)
+            g.replays = 0
+        return per_pass
+
+    def script_figures(self) -> dict:
+        """The script of a pass: segments, loops, chunk graphs, host
+        operations, and the nodes of the chunk graphs (None on the
+        CPU)."""
+        if not self.cuda:
+            return dict(segments=None, loops_a_pass=None, chunk_graphs=None,
+                        host_ops_a_pass=None, chunk_nodes=None)
+        loops = [i for i in self.script if isinstance(i, _Loop)]
+        chunks = [g for lp in loops for g in lp.chunks.values()]
+        return dict(
+            segments=sum(isinstance(i, _Segment) for i in self.script),
+            loops_a_pass=len(loops), chunk_graphs=len(chunks),
+            host_ops_a_pass=sum(isinstance(i, _HostOp)
+                                for i in self.script),
+            chunk_nodes=sum(g.nodes for g in chunks))
 
     def result(self, dat, state):
         """The final state out of the static buffers: a copy, with the
@@ -338,6 +639,7 @@ def run(key, dat, state, step: Callable, live: Callable):
     else:
         _CACHE.move_to_end(key)
         prog.load(dat, state)
+    before = (LOOPS, LOOP_TRIPS, LOOP_READS, CHUNK_REPLAYS, HOST_OPS)
     passes = syncs = 0
     t0 = time.perf_counter()
     while True:
@@ -348,18 +650,20 @@ def run(key, dat, state, step: Callable, live: Callable):
         if not prog.running():
             break
     replay_s = time.perf_counter() - t0
-    per_pass: dict = {}
-    for module, shape, incs in prog.captured:
-        _credit(module, shape, incs, passes)
-        name = module.__name__.rsplit(".", 1)[-1]
-        per_pass[name] = per_pass.get(name, 0) + 1
+    per_pass = prog.credit(passes)
+    loops, trips, reads, chunks, host_ops = (
+        a - b for a, b in zip((LOOPS, LOOP_TRIPS, LOOP_READS, CHUNK_REPLAYS,
+                               HOST_OPS), before))
     LAST.clear()
     LAST.update(passes=passes, syncs=syncs, built=built,
                 warmup_s=prog.warmup_s if built else 0.0,
                 capture_s=prog.capture_s if built else 0.0,
                 instantiate_s=prog.instantiate_s if built else 0.0,
                 replay_s=replay_s, nodes_a_pass=prog.nodes,
-                launches_a_pass=per_pass)
+                launches_a_pass=per_pass, **prog.script_figures(),
+                loops=loops, trips=trips, loop_reads=reads,
+                chunk_replays=chunks,
+                host_ops=host_ops, host_reads=syncs + reads)
     return prog.result(dat, state)
 
 

@@ -21,12 +21,15 @@ per-lane masks:
 ``hsd_solve`` does (``tulip_tpu/ipm/hsd.py:587-595``):
 
 - the device program (:func:`hsd_solve_device`, :mod:`.graph`): one
-  captured CUDA graph a pass, replayed with one host read a pass; the two
-  inner loops run their bound of trips, masked (3 bumps, CorrectionLimit
-  corrections). It is taken when nothing needs the host between passes
+  captured pass, replayed with one host read a pass; the two inner loops
+  run their bound of trips, masked (3 bumps, CorrectionLimit
+  corrections). The pass is one CUDA graph, or, where it holds Krylov
+  solves or Gloo collectives, a script of graphs with the Krylov trips in
+  chunk graphs (a host read a chunk) and the collectives on the host
+  between them. It is taken when nothing needs the host between passes
   (``OutputLevel == 0``, no ``log_fn``, no finite ``TimeLimit``,
   ``HostLoop`` off) and the backend declares ``device_loop`` (every
-  backend but the 13 Krylov ones and ``"schur"``);
+  backend of the port);
 - the host-driven loop: every loop asks the device whether any lane is
   still active, one host sync a pass, a bump and a correction.
 
@@ -645,19 +648,6 @@ def solve(backend, opts, dat: LPData, init=None, iteration=None,
     return state
 
 
-def require_device_loop(backend) -> None:
-    """Raise ``NotImplementedError`` for a backend that runs on the
-    host-driven loop only (``device_loop`` False): the 13 Krylov backends,
-    whose trips stop on a host test, and ``"schur"``, whose Gloo
-    collectives stage through host memory."""
-    if not backend.device_loop:
-        raise NotImplementedError(
-            f"KKT backend {backend.name!r} ({type(backend).__name__}) has no "
-            f"device program: it runs on the host-driven loop only (ROADMAP "
-            f"item 12, 'left': the Krylov trips and 'schur'); use "
-            f"hsd_solve/mpc_solve or HostLoop=True")
-
-
 def device_solve(backend, opts, dat, state: HSDState,
                  iteration=None) -> HSDState:
     """Run ``iteration`` from ``state`` until no lane is UNKNOWN, as the
@@ -667,8 +657,8 @@ def device_solve(backend, opts, dat, state: HSDState,
     keys its static arguments) and replayed, with one host read of whether
     any lane is UNKNOWN every :data:`.graph.K_PASSES` passes. A second
     solve of the same key copies its inputs into the cached program's
-    static buffers and replays it. The backend must declare
-    ``device_loop``."""
+    static buffers and replays it. A capture that fails raises: nothing
+    falls back to the host-driven loop."""
     if iteration is None:
         iteration = hsd_iteration
     key = (iteration, backend, opts, dat.b.device,
@@ -687,9 +677,8 @@ def hsd_solve_device(backend, opts: HSDOptions, dat: LPData,
                      state: Optional[HSDState] = None) -> HSDState:
     """The whole HSD solve as the device program (reference:
     ``tulip_tpu/ipm/hsd.py:564-577``, one ``lax.while_loop``), from
-    ``state`` or, when None, from :func:`init_state` run eagerly. A backend
-    without ``device_loop`` raises ``NotImplementedError``."""
-    require_device_loop(backend)
+    ``state`` or, when None, from :func:`init_state` run eagerly, for any
+    backend, as the reference's."""
     if state is None:
         with full_matmul_precision():
             state = init_state(dat, backend, mehrotra=opts.MehrotraStart)

@@ -36,8 +36,7 @@ from .hsd import (_DUAL_INFEASIBLE, _ITERATION_LIMIT, _NUMERICAL_PROBLEM,
                   _SLN_FEASIBLE, _SLN_OPTIMAL, _SLN_UNKNOWN, _UNKNOWN,
                   DataNorms, HSDState, _col, _data_norms, device_solve,
                   factor_with_bumps, first_match, fresh_state,
-                  full_matmul_precision, require_device_loop, solve,
-                  tree_where)
+                  full_matmul_precision, solve, tree_where)
 from .point import Point, Residuals, dot, inf_norm, num_finite_bounds, \
     update_mu
 
@@ -375,9 +374,8 @@ def mpc_solve_device(backend, opts: MPCOptions, dat: LPData,
                      state: Optional[HSDState] = None) -> HSDState:
     """The whole MPC solve as the device program (reference:
     ``tulip_tpu/ipm/mpc.py:435-448``), from ``state`` or, when None, from
-    :func:`init_state_mpc` run eagerly. A backend without ``device_loop``
-    raises ``NotImplementedError``."""
-    require_device_loop(backend)
+    :func:`init_state_mpc` run eagerly, for any backend, as the
+    reference's."""
     if state is None:
         with full_matmul_precision():
             state = init_state_mpc(dat, backend)

@@ -48,10 +48,12 @@ class KKTBackend:
     # a TypeError before any device work.
     lp_data_refusal = None
     # Whether the IPM may run this backend as its device program
-    # (``ipm/graph.py``): one captured CUDA graph a pass. That needs an
-    # ``update`` and ``solve`` with no host read, no host-side plan that
-    # changes between calls and no collective, since a capture records the
-    # launches without running them. Backends that declare it hold to that.
+    # (``ipm/graph.py``): a captured pass. That needs an ``update`` and
+    # ``solve`` whose host reads are those of ``graph.loop`` only, with no
+    # host-side plan that changes between calls and whose collectives go
+    # through a ``parallel.comm.Comm``, since a capture records the
+    # launches without running them. Every backend of the port declares
+    # it; one that does not runs on the host-driven loop.
     device_loop = False
 
     # -- introspection (reference: src/KKT/KKT.jl:103-121) ---------------

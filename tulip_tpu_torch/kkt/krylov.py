@@ -7,13 +7,18 @@ an implicit operator, two batched GEMVs an application.
 
 Each solver takes the reference's arguments with a leading lane axis B on
 every tensor. The reference runs one ``lax.while_loop`` per lane (under
-``vmap``); here one host loop, :func:`_masked_while`, runs the body for
-every lane on each trip, and a lane whose stopping test holds keeps its
-carry (``torch.where``), so it ends on the iterate at which the
-reference's loop stops for it. Frozen lanes never change, so the host
-tests ``active.any()`` only every ``_CHECK_EVERY`` trips, with the same
-bits as testing on every trip. Trip counts are Python ints: a lane still
-active on trip t has run t trips, which is the reference's counter ``k``.
+``vmap``); here :func:`_masked_while` runs the body for every lane on each
+trip, and a lane whose stopping test holds keeps its carry
+(``torch.where``), so it ends on the iterate at which the reference's loop
+stops for it. Frozen lanes never change, so the host tests
+``active.any()`` only every ``_CHECK_EVERY`` trips, with the same bits as
+testing on every trip. Trip counts are Python ints: a lane still active on
+trip t has run t trips, which is the reference's counter ``k``. On the
+host-driven loop the trips run one by one from a Python loop; inside a
+device program (``ipm/graph.py``) the loop is an item of the pass's
+script, its trips captured in chunks of ``_CHECK_EVERY`` that write the
+carry in place, with the same host reads: every backend here declares
+``device_loop``.
 
 - ``CgK1Backend``: conjugate gradients on the SPD normal-equations operator
   ``w ↦ A D Aᵀ w + Rd w`` with Jacobi preconditioning
@@ -38,6 +43,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ipm import graph
 from .base import KKTBackend
 
 # Trips between two host tests of whether any lane is still active. Not a
@@ -85,17 +91,36 @@ def _masked_while(cond: Callable, body: Callable, carry: tuple,
     the trip on which ``cond`` first fails; the loop stops when no lane is
     active, which the host tests every ``_CHECK_EVERY`` trips. The carry
     lives in one buffer, so that a trip's per-lane select is one
-    ``torch.where`` (and one ``torch.cat``) whatever its length."""
+    ``torch.where`` (and one ``torch.cat``) whatever its length.
+
+    Inside a device program the buffer and the mask are static: each trip
+    writes them in place (``copy_``), and :func:`..ipm.graph.loop` runs the
+    trips in chunks of ``_CHECK_EVERY`` after a host read each. Either way
+    the trips run and their bits are the same, and so are the reads."""
     buf = _pack(carry)
     carry = _unpack(buf, carry)
     active = cond(carry)
+    if graph.in_device_program():
+        def trip(k):
+            c = _unpack(buf, carry)
+            buf.copy_(torch.where(active.unsqueeze(-1), _pack(body(c, k)),
+                                  buf))
+            active.copy_(cond(c))
+
+        graph.loop(trip, (buf,), active, maxiter, _CHECK_EVERY)
+        return _unpack(buf, carry)
+    trips = reads = 0
     for k in range(maxiter):
-        if k % _CHECK_EVERY == 0 and not _any(active):
-            break
+        if k % _CHECK_EVERY == 0:
+            reads += 1
+            if not _any(active):
+                break
         buf = torch.where(active.unsqueeze(-1), _pack(body(carry, k)), buf)
         carry = _unpack(buf, carry)
         # A frozen lane's carry, hence its cond, no longer changes.
         active = cond(carry)
+        trips += 1
+    graph.count_loop(trips, reads)
     return carry
 
 
@@ -762,6 +787,8 @@ def _k2_mv(A, theta_reg, regD, n):
 class CgK1Backend(KKTBackend):
     name = "cg"
     systems = ("K1",)
+    # A device program runs the trips as a loop item (ipm/graph.py).
+    device_loop = True
     # Matrix-free: satisfies the Jacobi-weighted residual criterion, not
     # the kit's uniform relative gate; validated end-to-end at the
     # reference's measured achievable tolerances
@@ -843,6 +870,7 @@ class MinresK2Backend(KKTBackend):
 
     name = "minres"
     systems = ("K2",)
+    device_loop = True
     sweep_resid_atol = None   # matrix-free; see CgK1Backend
     rtol: float = 0.0
     maxiter_factor: int = 10
@@ -886,6 +914,7 @@ class TricgK2Backend(KKTBackend):
     name = "tricg"
     sweep_resid_atol = None   # matrix-free; see CgK1Backend
     systems = ("K2",)
+    device_loop = True
     rtol: float = 0.0
     maxiter_factor: int = 10
     # Experimental (see the module docstring): controls the N⁻¹-weighted
@@ -1060,6 +1089,7 @@ class LsqrK1Backend(KKTBackend):
     name = "lsqr"
     sweep_resid_atol = None   # matrix-free; see CgK1Backend
     systems = ("K1",)
+    device_loop = True
     rtol: float = 0.0
     maxiter_factor: int = 10
 

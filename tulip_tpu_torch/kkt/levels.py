@@ -15,8 +15,11 @@ The device functions take one LP's tile store T (ntiles, B, B):
   ``torch.linalg.cholesky_ex``'s ``info`` says so. ``ok`` stays a device
   tensor: no host sync inside the level loop.
 - ``.at[].add`` becomes ``index_add_``, which accumulates repeated
-  targets (on CUDA through atomics, in an order that may change from
-  run to run).
+  targets. On CUDA its atomics add in an order that may change from run
+  to run, and on these scatters the bits did change (the factorization's
+  update, both substitutions, and ``kkt/sparse.py``'s Aᵀy): they go
+  through :func:`index_add_fixed`, which sums each target's terms in one
+  order on every run.
 - ``level_factor_signed`` is the K2 factorization of ``"sparse-ldl"``'s
   level schedule; :func:`signed_pivot` is its per-tile step, which the
   column schedule (``kkt/sparse_ldl.py``) shares.
@@ -24,6 +27,7 @@ The device functions take one LP's tile store T (ntiles, B, B):
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -236,6 +240,38 @@ def segs_to(segs: Sequence[LevelSeg], device) -> Tuple[LevelSeg, ...]:
 # Device: level-scheduled numeric factorization and substitution
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms, for the enclosed calls only (and
+    no fill of their scratch memory)."""
+    from torch.utils import deterministic
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        deterministic.fill_uninitialized_memory = saved[2]
+
+
+def index_add_fixed(t: torch.Tensor, index: torch.Tensor,
+                    source: torch.Tensor, alpha: float = 1) -> torch.Tensor:
+    """``t.index_add_(0, index, source, alpha=alpha)`` with the terms of a
+    repeated target summed in one order on every run. On the card it is
+    torch's deterministic ``index_add_`` (a sort of the targets, then one
+    sequential sum a target), scoped to this call; it can be captured in a
+    CUDA graph. On the CPU, ``index_add_`` itself, which sums in index
+    order."""
+    if not t.is_cuda:
+        return t.index_add_(0, index, source, alpha=alpha)
+    with _deterministic():
+        return t.index_add_(0, index, source, alpha=alpha)
+
+
 def _eye(T: torch.Tensor) -> torch.Tensor:
     return torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
 
@@ -296,9 +332,9 @@ def level_factor_spd(T: torch.Tensor, segs: Sequence[LevelSeg],
         T[seg.sub_ids] = Lsub
         # All of the level's right-looking updates as one batched GEMM +
         # scatter-add (repeated targets accumulate).
-        T.index_add_(0, seg.u_tgt,
-                     Lsub[seg.u_a] @ Lsub[seg.u_b].transpose(-1, -2),
-                     alpha=-1)
+        index_add_fixed(T, seg.u_tgt,
+                        Lsub[seg.u_a] @ Lsub[seg.u_b].transpose(-1, -2),
+                        alpha=-1)
         ok = ok & ok_l
     return T, ok
 
@@ -376,8 +412,8 @@ def level_fwd(T: torch.Tensor, segs: Sequence[LevelSeg],
         yj = y[seg.cols]                             # (w, B)
         yj = bmv(D, yj) if inv_factor else solve_lower(D, yj)
         y[seg.cols] = yj
-        y.index_add_(0, seg.sub_brow, bmv(T[seg.sub_ids], yj[seg.sub_owner]),
-                     alpha=-1)
+        index_add_fixed(y, seg.sub_brow,
+                        bmv(T[seg.sub_ids], yj[seg.sub_owner]), alpha=-1)
     return y
 
 
@@ -388,9 +424,9 @@ def level_bwd(T: torch.Tensor, segs: Sequence[LevelSeg], v: torch.Tensor,
     x = torch.zeros_like(v)
     for seg in reversed(segs):
         acc = bmtv(T[seg.sub_ids], x[seg.sub_brow])  # (S, B)
-        acc_col = torch.zeros(seg.cols.shape[0], v.shape[1], dtype=v.dtype,
-                              device=v.device).index_add_(0, seg.sub_owner,
-                                                          acc)
+        acc_col = index_add_fixed(
+            torch.zeros(seg.cols.shape[0], v.shape[1], dtype=v.dtype,
+                        device=v.device), seg.sub_owner, acc)
         r = v[seg.cols] - acc_col
         D = T[seg.cols]
         x[seg.cols] = bmtv(D, r) if inv_factor else solve_lower(D, r,

@@ -124,6 +124,9 @@ class SchurK1Backend(KKTBackend):
 
     name = "schur"
     systems = ("K1",)
+    # A device program captures the pass; a Gloo group's collectives are
+    # host operations of its script (ipm/graph.py, parallel/comm.py).
+    device_loop = True
     lp_data_refusal = (
         "KKT backend 'schur' solves block-angular LPs only: build a "
         "BlockAngularLPData (tulip_tpu_torch.parallel.make_block_angular) "

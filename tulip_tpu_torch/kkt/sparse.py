@@ -42,9 +42,9 @@ import torch
 
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
-from .levels import (build_level_plan, cholesky_or_identity, level_bwd,
-                     level_factor_spd, level_fwd, nd_block_order, segs_to,
-                     solve_lower, solve_right_lower_t, tile_fill)
+from .levels import (build_level_plan, cholesky_or_identity, index_add_fixed,
+                     level_bwd, level_factor_spd, level_fwd, nd_block_order,
+                     segs_to, solve_lower, solve_right_lower_t, tile_fill)
 
 
 def tile_plan(A_np: np.ndarray, block: int, use_native: bool = True):
@@ -464,12 +464,14 @@ class SparseK1Backend(KKTBackend):
 
     @staticmethod
     def _AT_blocked(st: SparseK1LevelState, yb):
-        """Aᵀ y for a blocked y via scatter-add over the supports."""
+        """Aᵀ y for a blocked y via scatter-add over the supports (a
+        column in several block rows' supports sums their terms in one
+        order on every run)."""
         n = st.d.shape[1]
         contrib = (st.Apc[0].transpose(-1, -2)
                    @ yb.unsqueeze(-1)).squeeze(-1)         # (nbr, smax)
-        return yb.new_zeros(n + 1).index_add_(
-            0, st.sup_idx.reshape(-1), contrib.reshape(-1))[:n]
+        return index_add_fixed(yb.new_zeros(n + 1), st.sup_idx.reshape(-1),
+                               contrib.reshape(-1))[:n]
 
     # -- device numeric ---------------------------------------------------
     def _update_level(self, st: SparseK1LevelState, theta_inv, regP, regD):

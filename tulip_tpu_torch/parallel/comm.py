@@ -15,9 +15,15 @@ Gloo a CUDA tensor is copied to host memory, reduced or gathered there and
 copied back: one explicit path, whatever collectives the installed Gloo
 takes for CUDA tensors. Nothing switches between the two on its own.
 
+Inside a device program (``ipm/graph.py``) an NCCL collective is captured
+with the pass, and a Gloo collective of CUDA tensors is a host operation of
+the pass's script (:func:`..ipm.graph.host_op`): the graph ends before it,
+and the next begins after it.
+
 Every call records ``(op, numel)`` in :attr:`Comm.counts` (and its bytes
 in :attr:`Comm.nbytes`), the port's stand-in for the reference's check of
 the collectives in the compiled program (``__graft_entry__.py:252-276``).
+A collective captured in a device program counts once for every replay.
 """
 
 from __future__ import annotations
@@ -51,37 +57,50 @@ class Comm:
         self.counts.clear()
         self.nbytes = 0
 
-    def _record(self, op: str, t: torch.Tensor) -> None:
-        self.counts[(op, t.numel())] += 1
-        self.nbytes += t.numel() * t.element_size()
+    def _record(self, op: str, numel: int, itemsize: int) -> None:
+        from ..ipm import graph
 
-    def _stage(self, t: torch.Tensor) -> torch.Tensor:
-        """A contiguous tensor the group's backend takes: host memory under
-        Gloo, the card under NCCL (a CPU tensor is refused)."""
+        graph.count_collective(self, (op, numel), numel * itemsize)
+
+    def _run(self, fn, t: torch.Tensor, shape, dtype) -> torch.Tensor:
+        """``fn`` (a collective) of ``t`` where the group's backend takes
+        it: on the card under NCCL (a CPU tensor is refused), in host
+        memory under Gloo (a CUDA tensor is staged there and its result
+        copied back: a host operation inside a device program). ``fn``
+        returns a tensor of ``shape`` and ``dtype`` on its input's
+        device."""
+        from ..ipm import graph
+
         if self.backend == "nccl" and not t.is_cuda:
             raise ValueError("an NCCL group moves CUDA tensors; got one on "
                              f"{t.device}")
         if self.backend == "gloo" and t.is_cuda:
-            return t.cpu()
-        return t.contiguous()
+            return graph.host_op(fn, t, shape, dtype)
+        return fn(t.contiguous())
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the group, the same bits on every rank."""
-        self._record("all_reduce_sum", t)
+        self._record("all_reduce_sum", t.numel(), t.element_size())
         if self.group is None:
             return t
-        x = self._stage(t).clone()
-        dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group)
-        return x.to(t.device)
+
+        def fn(x):
+            x = x.clone()
+            dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group)
+            return x
+        return self._run(fn, t, t.shape, t.dtype)
 
     def all_reduce_and(self, flag: torch.Tensor) -> torch.Tensor:
         """Elementwise AND of a boolean tensor over the group."""
-        self._record("all_reduce_and", flag)
+        self._record("all_reduce_and", flag.numel(), flag.element_size())
         if self.group is None:
             return flag
-        x = self._stage(flag.to(torch.int32))
-        dist.all_reduce(x, dist.ReduceOp.MIN, group=self.group)
-        return x.to(flag.device).bool()
+
+        def fn(x):
+            x = x.to(torch.int32)
+            dist.all_reduce(x, dist.ReduceOp.MIN, group=self.group)
+            return x.bool()
+        return self._run(fn, flag, flag.shape, torch.bool)
 
     def all_gather_blocks(self, t: torch.Tensor, dim: int = 0,
                           counts: Optional[Sequence[int]] = None,
@@ -97,22 +116,22 @@ class Comm:
         numel = torch.Size(shape).numel()
         # The gathered result's elements: what the reference's HLO check
         # reads as the size of an all-gather.
-        self.counts[("all_gather_blocks", numel)] += 1
-        self.nbytes += numel * t.element_size()
+        self._record("all_gather_blocks", numel, t.element_size())
         if self.group is None:
             return t
         width = max(counts)
-        x = self._stage(t)
-        if x.shape[dim] < width:
-            pad = list(x.shape)
-            pad[dim] = width - x.shape[dim]
-            x = torch.cat([x, x.new_zeros(pad)], dim)
-        parts: List[torch.Tensor] = [torch.empty_like(x)
-                                     for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        out = torch.cat([p.narrow(dim, 0, c) for p, c in zip(parts, counts)],
-                        dim)
-        return out.to(t.device)
+
+        def fn(x):
+            if x.shape[dim] < width:
+                pad = list(x.shape)
+                pad[dim] = width - x.shape[dim]
+                x = torch.cat([x, x.new_zeros(pad)], dim)
+            parts: List[torch.Tensor] = [torch.empty_like(x)
+                                         for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat([p.narrow(dim, 0, c)
+                              for p, c in zip(parts, counts)], dim)
+        return self._run(fn, t, shape, t.dtype)
 
 
 def init_comm(backend: str, rank: int, size: int, store_path: str,

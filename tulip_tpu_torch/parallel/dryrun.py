@@ -26,12 +26,18 @@ cpu``) runs them as CPU processes over Gloo::
 
     python -m tulip_tpu_torch.parallel.dryrun --procs N --backend nccl
 
-The workers import this package and never JAX.
+Every solve of a job runs as the device program (``ipm/graph.py``), as
+``hsd_solve`` routes it: under NCCL each pass is captured whole, under
+Gloo the pass's collectives are host operations between its captured
+segments (on the CPU the pass runs step by step). ``case_schur(...,
+host_loop=True)`` runs the host-driven loop instead. The workers import
+this package and never JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import multiprocessing
 import os
 import pickle
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ipm import graph
 from ..ipm.batch import (batched_hsd_solve, gather_lanes, shard_batch,
                          stack_lps_host)
 from ..ipm.hsd import HSDOptions, hsd_solve
@@ -151,11 +158,15 @@ def replicated_state(state) -> dict:
 
 def case_schur(comm, device, arrays, dtype="float64", tol=None,
                pad_to=None, refinement_steps=0, dense=False,
-               state=False) -> dict:
+               state=False, host_loop=False) -> dict:
     """The HSD solve of one block-angular LP through ``"schur"`` with its
-    scenarios (padded to ``pad_to`` first) sharded over ``comm``; with
-    ``dense``, rank 0 adds the dense single-process solve's objective of
-    the unpadded LP; with ``state``, the replicated final state."""
+    scenarios (padded to ``pad_to`` first) sharded over ``comm``: as the
+    device program (``ipm/graph.py``; under Gloo its collectives are host
+    operations of the pass's script), or with ``host_loop`` on the
+    host-driven loop. With ``dense``, rank 0 adds the dense single-process
+    solve's objective of the unpadded LP; with ``state``, the replicated
+    final state. ``graph`` holds the program's figures (empty on the host
+    loop)."""
 
     dat = make_block_angular(*arrays, device=device, dtype=_dtype(dtype))
     if pad_to is not None:
@@ -164,13 +175,14 @@ def case_schur(comm, device, arrays, dtype="float64", tol=None,
     comm.reset()
     _sync(device)
     t0 = time.perf_counter()
+    graph.LAST.clear()
     out = hsd_solve(dat, SchurK1Backend(refinement_steps=refinement_steps),
-                    _opts(tol))
+                    dataclasses.replace(_opts(tol), HostLoop=host_loop))
     _sync(device)
     res = dict(status=int(out.status), niter=int(out.niter),
                pobj=float(out.pobj), wall=time.perf_counter() - t0,
                counts=dict(comm.counts), nbytes=comm.nbytes,
-               n0=dat.n0, K=dat.K)
+               n0=dat.n0, K=dat.K, graph=dict(graph.LAST))
     if state:
         res["state"] = replicated_state(out)
     if dense and comm.rank == 0:
