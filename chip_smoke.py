@@ -230,19 +230,34 @@ Phases, each of which exits non-zero on a failed check:
    two Gloo processes (program state equal to the host loop's on each
    rank, ranks equal, 12a's iterations; warm ms an iteration, segments
    and host operations a pass);
+16. after phase 15 and ``clear_device_programs()``, sparse-first at the
+   reference's scale point (``SCALE_POINTS``: ``staircase_lp(32768)`` and
+   ``(65536)``, which are ``examples/large_sparse.py``'s ``staircase``)
+   through ``Model.optimize()`` at its defaults (f64, ``"sparse"``):
+   16a twice as the device program (built, then warm from the cache),
+   16b once with ``HostLoop=True``; each run OPTIMAL within one iteration
+   of the reference's count, the objective within 1e-7, the three final
+   states equal bit for bit, each run's peak device memory below a
+   quarter of a dense f64 A; timings, ms an iteration, peak memory, the
+   program's warm-up, capture and instantiation seconds, nodes a pass and
+   host reads, the standard form's seconds and SparseLPData bytes; 16c
+   the device memory held after 16a's first solve returns, by the cache
+   once the Model is dropped (each cached program's bytes, its graph pool
+   included) and after ``clear_device_programs()``, when no graph pool
+   may be left;
 10. kernels at the main path's shapes: every (B, m, n, refine) that phases
    4-9, 11-13 gave the fused solve and every (B, m, instances per
    block) they gave the chol-inv kernel, held against the plain version on
    seeded inputs of that shape with phase 3's and 3c's bars; the chol-inv
    shapes must include the blocked path's (1, 1024) and an m = 256 bucket.
 
-Phases 4-9 and 11-15 (6b, 6c, 7b, 7c, 7d, 12a-12d, 13's pairs and 14's
+Phases 4-9 and 11-16 (6b, 6c, 7b, 7c, 7d, 12a-12d, 13's pairs and 14's
 routes included) are the main path: every kernel's launch count is reset
 just before each of them and read just after (12d's in each worker, just
 before and after its solve). Solves through every backend (each declares
 ``device_loop``) run as the device program
 (``tulip_tpu_torch/ipm/graph.py``) unless an iteration log is asked for
-(the CLI's runs) or ``HostLoop=True`` (the twins of phases 13-15): a
+(the CLI's runs) or ``HostLoop=True`` (the twins of phases 13-16): a
 kernel in its
 captured pass counts once for every replay of the pass, credited when the
 solve ends, and a capture or its warm-up counts no launch. The last lines are the card's name and power limit, a JSON list of
@@ -951,18 +966,18 @@ def staircase_model(lp, device, dtype, backend=None):
     return mod
 
 
-def solve_model(mod):
-    """Optimize; returns (status, objective, wall seconds). The Model
-    keeps its IPM call (:func:`recorded`) as ``mod.smoke_ipm``, for
-    phase 14."""
+def solve_model(mod, host_loop=False):
+    """Optimize (the IPM with ``HostLoop=True`` when ``host_loop``);
+    returns (status, objective, wall seconds). The Model keeps its IPM
+    call (:func:`recorded`) as ``mod.smoke_ipm``, for phases 14 and 16."""
     import importlib
 
     from tulip_tpu_torch import get_attribute
 
     # The package exports a function named like this module.
     tmodel = importlib.import_module("tulip_tpu_torch.model")
-    with recorded(tmodel, "hsd_solve", False) as hsd_calls, \
-            recorded(tmodel, "mpc_solve", False) as mpc_calls:
+    with recorded(tmodel, "hsd_solve", host_loop) as hsd_calls, \
+            recorded(tmodel, "mpc_solve", host_loop) as mpc_calls:
         t0 = time.perf_counter()
         st = mod.optimize()
         wall = time.perf_counter() - t0
@@ -2506,6 +2521,163 @@ def phase_krylov_device(krylov_run, schur_run, device, card, profile):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: sparse-first at the reference's scale point
+# ---------------------------------------------------------------------------
+
+# (m, the reference's iterations, the objective held to SCALE_RTOL) of
+# staircase_lp(m), which is examples/large_sparse.py:staircase(m). At
+# m = 32768 the reference's objective (BASELINE.md:225-239; HiGHS agreed to
+# 1.9e-9); at m = 65536 the reference recorded none, so the port's on the
+# CPU (tests/test_torch_sparse_first.py::test_scale_point_on_the_cpu).
+SCALE_POINTS = ((32768, 23, -15361.160387712),
+                (65536, 21, -30644.792195068792))
+SCALE_RTOL = 1e-7
+
+
+def graph_pool_bytes():
+    """Bytes reserved in CUDA graphs' private memory pools (segments of
+    any pool but the default one)."""
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def scale_run(mod, host_loop):
+    """One ``optimize()`` of phase 16: its figures, the peak device memory
+    above what was held before it (peak reset before it), the bytes held
+    after it returns and the final state."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st, z, wall = solve_model(mod, host_loop=host_loop)
+    torch.cuda.synchronize()
+    it = mod.barrier_iterations
+    return dict(status=st.name, iterations=it, objective=z, wall_s=wall,
+                timings=dict(mod.timings),
+                ipm_ms_an_iteration=mod.timings["ipm"] / max(it, 1) * 1e3,
+                peak_mb=(torch.cuda.max_memory_allocated() - base) / 1e6,
+                held_after_mb=torch.cuda.memory_allocated() / 1e6,
+                program=mod.smoke_ipm[-1][1], state=mod.solver_state)
+
+
+def phase_scale(device, count, card, points=SCALE_POINTS):
+    """Phase 16: each LP of ``points`` through ``Model.optimize()`` at its
+    defaults (f64, sparse-first ``"sparse"``): twice as the device program
+    (built, then a warm replay of the cached program; 16a) and once with
+    ``HostLoop=True`` (16b). Checks every run OPTIMAL, within one iteration
+    of the reference's count, the objective within SCALE_RTOL, the three
+    final states equal bit for bit and each run's peak device memory below
+    a quarter of a dense f64 A. Prints each run's timings, ms an iteration,
+    peak memory and the device program's build figures, the sparse-first
+    standard form's seconds and bytes timed again alone, and (16c) the
+    device memory held after 16a's first solve returns, by the cache once
+    the Model is dropped (the earlier points' programs still cached; each
+    program's ``nbytes``, its graph pool included) and after
+    ``clear_device_programs()``, which must leave no graph pool."""
+    import gc
+
+    from tulip_tpu_torch.ipm import graph
+
+    t16 = time.perf_counter()
+    graph.clear_device_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base0 = torch.cuda.memory_allocated()
+    res = {}
+    with count.phase() as n16:
+        for m, want_it, want_z in points:
+            lp = staircase_lp(m)
+            n = lp[0].shape[1]
+            dense_mb = m * n * 8 / 1e6
+            what = f"staircase_lp({m})"
+            mod = staircase_model(lp, device, "float64")
+            runs = {"16a_built": scale_run(mod, False)}
+            runs["16a_warm"] = scale_run(mod, False)
+            runs["16b_host_loop"] = scale_run(mod, True)
+            check(mod.kkt_backend.name == "sparse"
+                  and type(mod.solver_state.kkt).__name__
+                  == "SparseK1LevelState", f"{what}: routed to "
+                  f"{mod.kkt_backend.name!r}, not sparse-first 'sparse'")
+            built = [r["program"].get("built") for r in runs.values()]
+            check(built == [True, False, None], f"{what}: the device "
+                  f"program was not built, then replayed, then left for the "
+                  f"host loop ({built})")
+            for label, r in runs.items():
+                err = abs(r["objective"] - want_z) / abs(want_z)
+                check(r["status"] == "OPTIMAL"
+                      and abs(r["iterations"] - want_it) <= 1
+                      and err <= SCALE_RTOL, f"{what} {label}: "
+                      f"{r['status']} in {r['iterations']} iterations "
+                      f"(reference {want_it}), objective {r['objective']!r} "
+                      f"(rel {err:.3e} to {want_z!r}, bar {SCALE_RTOL})")
+                check(r["peak_mb"] < dense_mb / 4, f"{what} {label}: peak "
+                      f"device memory {r['peak_mb']:.1f} MB is not below a "
+                      f"quarter of a dense f64 A's {dense_mb:.1f} MB")
+            for label in ("16a_built", "16a_warm"):
+                check(same_state_bits(runs[label]["state"],
+                                      runs["16b_host_loop"]["state"]),
+                      f"{what} {label}: the device program's final state "
+                      f"differs from HostLoop=True's")
+            plan_s, dat_bytes, setup_s = sparse_first_symbolic_s(mod,
+                                                                 device)
+            out = {"n": n, "nnz": int(lp[0].nnz), "dense_a_mb": dense_mb,
+                   "sparse_lp_data_mb": dat_bytes / 1e6,
+                   "coo_to_sparse_lp_data_s": plan_s,
+                   "level_setup_s": setup_s,
+                   "reference_iterations": want_it}
+            for label, r in runs.items():
+                fig = r.pop("program")
+                del r["state"]
+                r["held_after_mb"] -= base0 / 1e6
+                if fig:
+                    r.update({k: fig[k] for k in (
+                        "warmup_s", "capture_s", "instantiate_s",
+                        "nodes_a_pass", "passes", "syncs", "replay_s")})
+                out[label] = r
+            del runs, mod
+            gc.collect()
+            torch.cuda.synchronize()
+            # The earlier points' programs are still cached.
+            out["16c_allocated_mb"] = (torch.cuda.memory_allocated()
+                                       - base0) / 1e6
+            out["16c_programs_mb"] = [p.nbytes / 1e6
+                                      for p in graph._CACHE.values()]
+            out["16c_graph_pools_mb"] = graph_pool_bytes() / 1e6
+            res[m] = out
+            log(f"[16] {what}: {n} columns, {out['nnz']} nonzeros; "
+                f"sparse-first 'sparse' at the defaults, OPTIMAL three times "
+                f"(16a built, 16a warm, 16b HostLoop=True), the three final "
+                f"states equal bit for bit; {json.dumps(out)}; {card}")
+        graph.clear_device_programs()
+        gc.collect()
+        torch.cuda.synchronize()
+        cleared = (torch.cuda.memory_allocated() - base0) / 1e6
+        torch.cuda.empty_cache()
+        pools_left = graph_pool_bytes()
+    for m, out in res.items():
+        log(f"  16c at m = {m}: allocated after 16a's first optimize() "
+            f"returned {out['16a_built']['held_after_mb']:.1f} MB (the "
+            f"Model, its state and the cache); once the Model was dropped "
+            f"{out['16c_allocated_mb']:.1f} MB allocated, graph pools "
+            f"{out['16c_graph_pools_mb']:.1f} MB reserved, the cached "
+            f"programs {out['16c_programs_mb']} MB (static copies and pool; "
+            f"budget {graph.CACHE_SHARE} of the card), against SparseLPData's "
+            f"{out['sparse_lp_data_mb']:.1f} MB; peaks (built, warm, host "
+            f"loop) {out['16a_built']['peak_mb']:.1f}, "
+            f"{out['16a_warm']['peak_mb']:.1f}, "
+            f"{out['16b_host_loop']['peak_mb']:.1f} MB against a dense f64 "
+            f"A's {out['dense_a_mb']:.1f} MB")
+    check(pools_left == 0, f"16c: {pools_left} B of graph pools left after "
+          f"clear_device_programs() and empty_cache()")
+    log(f"  16c after clear_device_programs(): {cleared:.1f} MB allocated "
+        f"above the phase's start, no graph pool left; launches of our "
+        f"kernels {n16} (this route runs none); phase 16 took "
+        f"{time.perf_counter() - t16:.1f} s; {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
@@ -3276,6 +3448,7 @@ def main(argv=None):
                             args.profile)
     log(f"  phase 15 launches of our kernels {n15} (its routes run none)")
     del krylov_run, schur_run
+    phase_scale(device, count, card)
     for name in COUNTERS:
         check(count.total[name] > 0, f"main path: {name} never launched")
 

@@ -397,6 +397,42 @@ def test_cache_is_bounded_least_recent_out(monkeypatch):
     assert graph.CAPTURES == n0 + 4
 
 
+def test_cache_is_bounded_by_bytes(monkeypatch):
+    """Each program counts the bytes it keeps (on the CPU its static
+    copies); past CACHE_SHARE of the device's memory the cache drops the
+    least recently used, but keeps the program of the solve that just ran,
+    whose next solve of the same shapes replays it."""
+    be, opts = DenseK1Backend(), HSDOptions()
+    dats = [stack_lps_host(random_lps(1, B=B), device="cpu",
+                           dtype=torch.float64) for B in (2, 3)]
+    batched_hsd_solve(be, opts, dats[0])
+    (prog,) = graph._CACHE.values()
+    assert prog.nbytes == graph._storage_bytes((prog.dat, prog.state)) > 0
+    assert prog.nbytes >= sum(x.numel() * x.element_size()
+                              for x in graph.leaves(prog.dat)
+                              if torch.is_tensor(x))
+    batched_hsd_solve(be, opts, dats[1])
+    assert len(graph._CACHE) == 2
+    assert graph.cached_bytes() == sum(p.nbytes
+                                       for p in graph._CACHE.values())
+    # Room for one program only: the newest stays, alone.
+    share = 1.5 * prog.nbytes / graph._device_memory(torch.device("cpu"))
+    monkeypatch.setattr(graph, "CACHE_SHARE", share)
+    graph.clear_device_programs()
+    n0 = graph.CAPTURES
+    batched_hsd_solve(be, opts, dats[0])
+    batched_hsd_solve(be, opts, dats[1])
+    assert graph.CAPTURES == n0 + 2 and len(graph._CACHE) == 1
+    batched_hsd_solve(be, opts, dats[1])
+    assert graph.CAPTURES == n0 + 2 and not graph.LAST["built"]
+    # Less room than the newest program needs: it is kept all the same.
+    monkeypatch.setattr(graph, "CACHE_SHARE", 0.0)
+    batched_hsd_solve(be, opts, dats[0])
+    assert graph.CAPTURES == n0 + 3 and len(graph._CACHE) == 1
+    batched_hsd_solve(be, opts, dats[0])
+    assert graph.CAPTURES == n0 + 3
+
+
 def test_init_state_is_not_written_by_the_program():
     """The caller's initial state is copied in, never written: the program
     works on its own static buffers."""

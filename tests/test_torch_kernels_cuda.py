@@ -828,3 +828,40 @@ def test_index_add_fixed_repeats_its_bits(cuda, dt):
     tol = 1e-12 if dt == torch.float64 else 1e-5
     assert ((runs[0].cpu() - want).abs().max()
             <= tol * want.abs().max())
+
+
+def test_dropped_programs_leave_no_graph_pool(cuda):
+    """A device program keeps its static copies and its graphs' memory
+    pool, and counts both (``Program.nbytes``); once every program is
+    dropped, no graph pool is left on the card: the cuBLAS workspace its
+    capture allocated lies in its pool and goes with it."""
+    from tulip_tpu_torch.ipm import graph
+    from tulip_tpu_torch.ipm.batch import batched_hsd_solve, stack_lps_host
+    from tulip_tpu_torch.ipm.hsd import HSDOptions
+    from tulip_tpu_torch.kkt import DenseK1Backend
+
+    def pools():
+        return sum(s["total_size"]
+                   for s in torch.cuda.memory._snapshot()["segments"]
+                   if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+    rng = np.random.default_rng(11)
+    raws = []
+    for _ in range(8):
+        A = rng.standard_normal((48, 96))
+        u = rng.uniform(1.0, 4.0, 96)
+        b = A @ (u * rng.uniform(0.2, 0.8, 96))
+        raws.append((A, b, rng.standard_normal(96), 0.0, np.zeros(96), u))
+    dats = stack_lps_host(raws, device=cuda, dtype=torch.float64)
+    graph.clear_device_programs()
+    torch.cuda.empty_cache()
+    assert pools() == 0
+    batched_hsd_solve(DenseK1Backend(), HSDOptions(), dats)
+    assert graph.LAST["built"]
+    (prog,) = graph._CACHE.values()
+    assert prog.nbytes > graph._storage_bytes((prog.dat, prog.state))
+    assert pools() > 0
+    del prog
+    graph.clear_device_programs()
+    torch.cuda.empty_cache()
+    assert pools() == 0

@@ -7,9 +7,13 @@ solve on states carried across from the JAX package, HSD through
 
 m = 2048 is the smallest staircase whose tile plan at the Model's block of
 128 passes the 0.5 fill gate: at m = 1024 both packages fall back to the
-dense data (``sparse_lp_data_from_problem`` gives None)."""
+dense data (``sparse_lp_data_from_problem`` gives None). Phase 16 of
+``chip_smoke.py`` (the reference's scale point, m = 32768 and 65536) runs
+here as a ``slow`` test."""
 
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -308,3 +312,48 @@ def test_cli_sparse_first_flag(tmp_path, capsys):
                 bounds=np.column_stack([np.zeros(A.shape[1]), u]))
     assert r.status == 0, r.message
     assert abs(float(got.group(2)) - r.fun) <= 1e-7 * max(1.0, abs(r.fun))
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def load_script(path):
+    """A script of the repository (not a package module) as a module."""
+    spec = importlib.util.spec_from_file_location(Path(path).stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_scale_point_lp_is_the_references():
+    """chip_smoke.py's phase 16 solves ``staircase_lp(m)``: it is the
+    reference's scale-point LP, ``examples/large_sparse.py:staircase(m)``,
+    array for array (A's CSR arrays, b, c, u)."""
+    ours = load_script(ROOT / "chip_smoke.py").staircase_lp(1024)
+    theirs = load_script(ROOT / "examples" / "large_sparse.py") \
+        .staircase(1024)
+    A, A_ref = ours[0], theirs[0]
+    assert A.shape == A_ref.shape == (1024, 1632)
+    for f in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(A, f), getattr(A_ref, f))
+    for x, x_ref in zip(ours[1:], theirs[1:]):
+        np.testing.assert_array_equal(x, x_ref)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("point", [0, 1], ids=["m32768", "m65536"])
+def test_scale_point_on_the_cpu(point):
+    """Phase 16's LPs through the port's ``Model.optimize()`` at its
+    defaults on the CPU, with phase 16's gates: sparse-first ``"sparse"``,
+    OPTIMAL within one iteration of the reference's count and the
+    objective within ``SCALE_RTOL`` of ``SCALE_POINTS``' (at m = 65536 the
+    port's own, which this test gives)."""
+    smoke = load_script(ROOT / "chip_smoke.py")
+    m, iters, z_ref = smoke.SCALE_POINTS[point]
+    mod = smoke.staircase_model(smoke.staircase_lp(m), "cpu", "float64")
+    assert mod.optimize() == TerminationStatus.OPTIMAL
+    assert mod.kkt_backend.name == "sparse"
+    assert isinstance(mod.solver_state.kkt, SparseK1LevelState)
+    assert abs(mod.barrier_iterations - iters) <= 1
+    z = tlt.get_attribute(mod, "ObjectiveValue")
+    assert abs(z - z_ref) <= smoke.SCALE_RTOL * abs(z_ref)

@@ -53,6 +53,7 @@ host operations eagerly. That is the plain version of the program.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
 from typing import Any, Callable, List, Tuple
@@ -65,9 +66,16 @@ import torch
 # relaunch behind it (tens of microseconds), so reading after every pass
 # loses the least.
 K_PASSES = 1
-# Device programs kept, least recently used out first. Each pins its graph's
-# memory pool; eight covers a bench's repeats of a few shapes.
+# Device programs kept, least recently used out first, while there are more
+# than CACHE_SIZE or they hold more than CACHE_SHARE of the device's memory
+# together (:attr:`Program.nbytes`: static copies of a solve's data and
+# state, and the graphs' memory pool). Eight covers a bench's repeats of a
+# few shapes. A program holds several times its LP's data (the pool keeps
+# the pass's intermediates), so a few large LPs would fill the card; the
+# share leaves the rest to the solves. The program of the solve that just
+# ran is kept whatever its size, so its warm replays stay.
 CACHE_SIZE = 8
+CACHE_SHARE = 0.25
 
 # Programs built (captures on the card, static buffers on the CPU) since
 # the process started.
@@ -475,10 +483,14 @@ class Program:
         # (a structured state's plan: index tensors, constant tiles).
         self.passthrough: frozenset = frozenset()
         device = next(x for x in leaves(dat) if torch.is_tensor(x)).device
+        self.device = device
         self.cuda = device.type == "cuda"
         self.script: list = []
         self.graphs: List[_Graph] = []
         self.warmup_s = self.capture_s = self.instantiate_s = 0.0
+        # Bytes this program keeps on its device: the static copies, and on
+        # the card the graphs' pool (added by the capture).
+        self.nbytes = _storage_bytes((self.dat, self.state))
         self.load(dat, state)
         if self.cuda:
             self.flag = torch.zeros((), dtype=torch.bool, device=device)
@@ -517,8 +529,15 @@ class Program:
         t0 = time.perf_counter()
         # As torch.cuda.graph does: a side stream, the cache emptied, and
         # no gc.collect() (torch's is off by default: on a large heap a
-        # full collection costs about a second a capture).
+        # full collection costs about a second a capture). cuBLAS keeps a
+        # workspace for each stream it has run on; cleared before and after
+        # the capture (as torch's inductor does), the workspace the capture
+        # allocates lies in the graphs' pool and is freed with it, where a
+        # workspace kept by cuBLAS would stay allocated, and hold that pool,
+        # after the program is dropped.
+        torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         rec = _Recorder()
@@ -537,6 +556,8 @@ class Program:
                 g.graph.instantiate()
         torch.cuda.synchronize()
         self.instantiate_s = time.perf_counter() - t0
+        torch._C._cuda_clearCublasWorkspaces()
+        self.nbytes += torch.cuda.memory_reserved(self.device) - reserved
         self.script, self.graphs = rec.script, rec.graphs
 
     @property
@@ -634,7 +655,10 @@ def run(key, dat, state, step: Callable, live: Callable):
     if built:
         prog = Program(dat, state, step, live)
         _CACHE[key] = prog
-        while len(_CACHE) > CACHE_SIZE:
+        budget = CACHE_SHARE * _device_memory(prog.device)
+        while len(_CACHE) > 1 and (
+                len(_CACHE) > CACHE_SIZE
+                or cached_bytes() > budget):
             _CACHE.popitem(last=False)
     else:
         _CACHE.move_to_end(key)
@@ -665,6 +689,29 @@ def run(key, dat, state, step: Callable, live: Callable):
                 chunk_replays=chunks,
                 host_ops=host_ops, host_reads=syncs + reads)
     return prog.result(dat, state)
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of the tensor leaves of ``tree``."""
+    seen = {}
+    for x in leaves(tree):
+        if torch.is_tensor(x):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _device_memory(device: torch.device) -> int:
+    """Bytes of memory of ``device``: the card's, or the host's for the
+    CPU, where the programs' static copies live."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def cached_bytes() -> int:
+    """Bytes that the cached programs keep (:attr:`Program.nbytes`)."""
+    return sum(p.nbytes for p in _CACHE.values())
 
 
 def clear_device_programs() -> None:
