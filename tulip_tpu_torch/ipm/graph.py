@@ -60,6 +60,8 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
+from .. import trace
+
 # Passes replayed between two reads of whether any lane is still running.
 # Without conditional nodes a replay after the last lane finished is a whole
 # pass of work (1-50 ms on the card), while a read costs one sync and the
@@ -688,6 +690,9 @@ def run(key, dat, state, step: Callable, live: Callable):
                 loops=loops, trips=trips, loop_reads=reads,
                 chunk_replays=chunks,
                 host_ops=host_ops, host_reads=syncs + reads)
+    trace.count("passes", passes)
+    trace.count("host_reads", syncs + reads)
+    trace.count("programs_built", built)
     return prog.result(dat, state)
 
 

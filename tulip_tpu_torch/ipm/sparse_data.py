@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..kkt.levels import segs_to
 from ..kkt.sparse import from_blocked, index_tensor
 from ..problem import ProblemData
@@ -178,34 +179,41 @@ def sparse_lp_data_from_problem(
     columns) such columns give None.
 
     The host arrays are the reference's, index for index; the dense (m, n)
-    array is formed neither on the host nor on the device.
+    array is formed neither on the host nor on the device. Each host step
+    is a span of :mod:`tulip_tpu_torch.trace` (``sparse_first/coo``,
+    ``/csr``, ``/dense_cols``, ``/level_plan``, ``/row_blocks``,
+    ``/col_blocks``); the upload is not, for it copies to the device.
     """
     import scipy.sparse as sp
 
     from ..kkt.sparse import k1_level_plan_pattern
     from ..kkt.sparse_ldl import dense_threshold
 
-    I, J, V, ntot, b, c, c0, l, u, objsense = standard_form_coo(pb)
+    with trace.span("sparse_first/coo"):
+        I, J, V, ntot, b, c, c0, l, u, objsense = standard_form_coo(pb)
     m = pb.ncon
-    A = sp.csr_matrix((V, (I, J)), shape=(m, ntot))
-    A.sum_duplicates()
+    with trace.span("sparse_first/csr"):
+        A = sp.csr_matrix((V, (I, J)), shape=(m, ntot))
+        A.sum_duplicates()
 
-    colnnz = np.diff(A.tocsc().indptr)
-    dense_idx = np.flatnonzero(colnnz >= dense_threshold(m))
-    if dense_idx.size > max(64, 0.02 * ntot):
-        return None              # too many to be structure + exceptions
-    k = dense_idx.size
-    U_np = np.zeros((m, 0))
-    if k:
-        U_np = np.asarray(A[:, dense_idx].todense())
-        A = A.tolil()
-        A[:, dense_idx] = 0.0
-        A = A.tocsr()
-        A.eliminate_zeros()
+    with trace.span("sparse_first/dense_cols"):
+        colnnz = np.diff(A.tocsc().indptr)
+        dense_idx = np.flatnonzero(colnnz >= dense_threshold(m))
+        if dense_idx.size > max(64, 0.02 * ntot):
+            return None          # too many to be structure + exceptions
+        k = dense_idx.size
+        U_np = np.zeros((m, 0))
+        if k:
+            U_np = np.asarray(A[:, dense_idx].todense())
+            A = A.tolil()
+            A[:, dense_idx] = 0.0
+            A = A.tocsr()
+            A.eliminate_zeros()
 
-    pattern = A.copy()
-    pattern.data = np.ones_like(pattern.data, dtype=np.int32)
-    lv = k1_level_plan_pattern(pattern, (m, ntot), block)
+    with trace.span("sparse_first/level_plan"):
+        pattern = A.copy()
+        pattern.data = np.ones_like(pattern.data, dtype=np.int32)
+        lv = k1_level_plan_pattern(pattern, (m, ntot), block)
     if lv is None:
         return None
 
@@ -217,30 +225,32 @@ def sparse_lp_data_from_problem(
     smax = sup_idx.shape[1]
 
     # Support-compressed permuted row blocks, straight from CSR slices.
-    Aperm = A[perm].tocsr()
-    Apc = np.zeros((nbr, B, smax), dtype=np.float64)
-    for j in range(nbr):
-        rows = Aperm[j * B:min((j + 1) * B, m)]
-        sup = sup_idx[j]
-        width = int(np.count_nonzero(sup < ntot))
-        blockm = rows[:, sup[:width]].toarray()
-        Apc[j, :blockm.shape[0], :width] = blockm
+    with trace.span("sparse_first/row_blocks"):
+        Aperm = A[perm].tocsr()
+        Apc = np.zeros((nbr, B, smax), dtype=np.float64)
+        for j in range(nbr):
+            rows = Aperm[j * B:min((j + 1) * B, m)]
+            sup = sup_idx[j]
+            width = int(np.count_nonzero(sup < ntot))
+            blockm = rows[:, sup[:width]].toarray()
+            Apc[j, :blockm.shape[0], :width] = blockm
 
     # Dual structure for Aᵀ y: column blocks of Aᵀ compressed to their
     # row supports, in the original row order.
-    At = A.T.tocsr()                    # (ntot, m): row j = column j of A
-    nbc = -(-ntot // B)
-    rsups = []
-    for j in range(nbc):
-        rows = At[j * B:min((j + 1) * B, ntot)]
-        rsups.append(np.unique(rows.indices))
-    rsmax = max(max((len(s) for s in rsups), default=1), 1)
-    rsup_idx = np.full((nbc, rsmax), m, np.int32)
-    Atc = np.zeros((nbc, B, rsmax), dtype=np.float64)
-    for j, s in enumerate(rsups):
-        rsup_idx[j, :len(s)] = s
-        blockm = At[j * B:min((j + 1) * B, ntot)][:, s].toarray()
-        Atc[j, :blockm.shape[0], :len(s)] = blockm
+    with trace.span("sparse_first/col_blocks"):
+        At = A.T.tocsr()                # (ntot, m): row j = column j of A
+        nbc = -(-ntot // B)
+        rsups = []
+        for j in range(nbc):
+            rows = At[j * B:min((j + 1) * B, ntot)]
+            rsups.append(np.unique(rows.indices))
+        rsmax = max(max((len(s) for s in rsups), default=1), 1)
+        rsup_idx = np.full((nbc, rsmax), m, np.int32)
+        Atc = np.zeros((nbc, B, rsmax), dtype=np.float64)
+        for j, s in enumerate(rsups):
+            rsup_idx[j, :len(s)] = s
+            blockm = At[j * B:min((j + 1) * B, ntot)][:, s].toarray()
+            Atc[j, :blockm.shape[0], :len(s)] = blockm
 
     lf = np.isfinite(l)
     uf = np.isfinite(u)

@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import trace
 from .params import Parameters
 from .problem import INF
 from .status import TerminationStatus
@@ -108,6 +109,7 @@ def linprog(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None,
     )
 
 
+@trace.call("batch_linprog")
 def batch_linprog(problems: Sequence[dict], *, device="cuda",
                   dtype="float32", params: Optional[Parameters] = None,
                   backend=None, algorithm: str = "HSD",
@@ -134,6 +136,13 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
 
     Returns a list of :class:`LinprogResult` (duals in standard-form row
     order: equality rows first, then inequality rows).
+
+    The call record ``"batch_linprog"`` (:mod:`tulip_tpu_torch.trace`)
+    sums each problem's ``load``, ``presolve`` and ``standard_form``
+    spans, then holds ``stack`` and ``ipm`` (the solve and its copy to
+    the host) a bucket and ``results`` (with ``extract`` and
+    ``postsolve`` inside it), and counts ``problems``,
+    ``decided_by_presolve`` and ``buckets``.
     """
     from .ipm.batch import (batched_hsd_solve, batched_mpc_solve,
                             bucket_dim, stack_lps_host)
@@ -157,30 +166,36 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
     if presolve is None:
         presolve = params.Presolve.Level > 0
 
+    trace.count("problems", len(problems))
     dats, meta, decided = [], [], {}
     for idx, kw in enumerate(problems):
-        pb = ProblemData()
-        n = _fill_pbdata(pb, kw["c"], kw.get("A_ub"), kw.get("b_ub"),
-                         kw.get("A_eq"), kw.get("b_eq"), kw.get("bounds"))
-        cvec = np.asarray(pb.obj, dtype=float)
+        with trace.span("load"):
+            pb = ProblemData()
+            n = _fill_pbdata(pb, kw["c"], kw.get("A_ub"), kw.get("b_ub"),
+                             kw.get("A_eq"), kw.get("b_eq"),
+                             kw.get("bounds"))
+            cvec = np.asarray(pb.obj, dtype=float)
         ps = None
         pb_ = pb
         if presolve:
-            ps = PresolveData(pb, params.Presolve)
-            st = ps.presolve()
-            if st in (TerminationStatus.OPTIMAL,
-                      TerminationStatus.PRIMAL_INFEASIBLE,
-                      TerminationStatus.DUAL_INFEASIBLE,
-                      TerminationStatus.PRIMAL_DUAL_INFEASIBLE):
-                sol = Solution(pb.ncon, pb.nvar)
-                postsolve(sol, ps.solution, ps)
-                decided[idx] = (st, sol, cvec, pb.obj0, n)
-                continue
-            pb_ = ps.extract_reduced_arrays()
+            with trace.span("presolve"):
+                ps = PresolveData(pb, params.Presolve)
+                st = ps.presolve()
+                if st in (TerminationStatus.OPTIMAL,
+                          TerminationStatus.PRIMAL_INFEASIBLE,
+                          TerminationStatus.DUAL_INFEASIBLE,
+                          TerminationStatus.PRIMAL_DUAL_INFEASIBLE):
+                    sol = Solution(pb.ncon, pb.nvar)
+                    postsolve(sol, ps.solution, ps)
+                    decided[idx] = (st, sol, cvec, pb.obj0, n)
+                    continue
+                pb_ = ps.extract_reduced_arrays()
         # Keep standard-form arrays on host; one stacked transfer below.
-        A_, b_, c_, c0_, l_, u_, _ = standard_form_arrays(pb_)
+        with trace.span("standard_form"):
+            A_, b_, c_, c0_, l_, u_, _ = standard_form_arrays(pb_)
         dats.append((A_, b_, c_, c0_, l_, u_))
         meta.append((idx, n, cvec, pb.obj0, ps, pb, pb_, pb_.nvar))
+    trace.count("decided_by_presolve", len(decided))
 
     def _decided_result(st, sol, cvec, c0, n):
         code, msg = _STATUS_MAP.get(st, (4, st.name))
@@ -227,37 +242,48 @@ def batch_linprog(problems: Sequence[dict], *, device="cuda",
         key = (bucket_dim(d[0].shape[0]), bucket_dim(d[0].shape[1]))
         buckets.setdefault(key, []).append(lane)
 
+    trace.count("buckets", len(buckets))
+
     lane_out = {}
     for key in sorted(buckets):
         lanes = buckets[key]
-        stacked = stack_lps_host([dats[i] for i in lanes], device=device,
-                                 dtype=tdtype, m_pad=key[0], n_pad=key[1])
-        out_b = _to_numpy(solver(backend, opts, stacked))
+        with trace.span("stack"):
+            stacked = stack_lps_host([dats[i] for i in lanes],
+                                     device=device, dtype=tdtype,
+                                     m_pad=key[0], n_pad=key[1])
+        with trace.span("ipm"):
+            out_b = _to_numpy(solver(backend, opts, stacked))
         for pos, lane in enumerate(lanes):
             lane_out[lane] = (out_b, pos)
 
-    for lane, (idx, n, cvec, c0, ps, pb, pb_, n_struct) in enumerate(meta):
-        out, pos = lane_out[lane]
-        st = TerminationStatus(int(out.status[pos]))
-        code, msg = _STATUS_MAP.get(st, (4, st.name))
-        # Un-pad the lane back to the instance's true standard-form dims.
-        m_i, n_i = dats[lane][0].shape
-        state_i = _host_lane(out, pos, m_i, n_i)
-        if ps is not None:
-            sol_inner = Solution(pb_.ncon, pb_.nvar)
-            _extract_solution(sol_inner, pb_, state_i, n_struct)
-            sol = Solution(pb.ncon, pb.nvar)
-            postsolve(sol, sol_inner, ps)
-        else:
-            sol = Solution(pb.ncon, pb.nvar)
-            _extract_solution(sol, pb, state_i, n_struct)
-        x = np.asarray(sol.x[:n], dtype=float)
-        fun = (float(cvec @ x + c0)
-               if st == TerminationStatus.OPTIMAL else np.nan)
-        results[idx] = LinprogResult(
-            x=x, fun=fun, success=st == TerminationStatus.OPTIMAL,
-            status=code, message=msg, nit=int(out.niter[pos]),
-            termination=st,
-            y=np.asarray(sol.y_lower) - np.asarray(sol.y_upper),
-            s=np.asarray(sol.s_lower) - np.asarray(sol.s_upper))
+    with trace.span("results"):
+        for lane, (idx, n, cvec, c0, ps, pb, pb_, n_struct) in \
+                enumerate(meta):
+            out, pos = lane_out[lane]
+            st = TerminationStatus(int(out.status[pos]))
+            code, msg = _STATUS_MAP.get(st, (4, st.name))
+            # Un-pad the lane back to the instance's true standard-form
+            # dims.
+            m_i, n_i = dats[lane][0].shape
+            state_i = _host_lane(out, pos, m_i, n_i)
+            if ps is not None:
+                with trace.span("extract"):
+                    sol_inner = Solution(pb_.ncon, pb_.nvar)
+                    _extract_solution(sol_inner, pb_, state_i, n_struct)
+                with trace.span("postsolve"):
+                    sol = Solution(pb.ncon, pb.nvar)
+                    postsolve(sol, sol_inner, ps)
+            else:
+                with trace.span("extract"):
+                    sol = Solution(pb.ncon, pb.nvar)
+                    _extract_solution(sol, pb, state_i, n_struct)
+            x = np.asarray(sol.x[:n], dtype=float)
+            fun = (float(cvec @ x + c0)
+                   if st == TerminationStatus.OPTIMAL else np.nan)
+            results[idx] = LinprogResult(
+                x=x, fun=fun, success=st == TerminationStatus.OPTIMAL,
+                status=code, message=msg, nit=int(out.niter[pos]),
+                termination=st,
+                y=np.asarray(sol.y_lower) - np.asarray(sol.y_upper),
+                s=np.asarray(sol.s_lower) - np.asarray(sol.s_upper))
     return results

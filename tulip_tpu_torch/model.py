@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import trace
 from .ipm.data import make_lp_data, standard_form_arrays
 from .ipm.hsd import HSDOptions, hsd_solve
 from .ipm.mpc import MPCOptions, mpc_solve
@@ -72,6 +73,11 @@ TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
 _PROBE_MIN_ROWS = 2048
 # Backends whose setup reads A on the host (given as ``host_A``).
 _HOST_SETUP = ("banded", "sparse", "sparse-smw", "sparse-ldl")
+# Model.timings' keys (the reference's phases) and the spans each sums.
+_TIMINGS = {"presolve": ("presolve_setup", "presolve"),
+            "standard_form": ("sparse_first", "standard_form", "to_device"),
+            "ipm": ("ipm",), "extract": ("extract",),
+            "postsolve": ("postsolve",)}
 
 
 class Model:
@@ -91,8 +97,9 @@ class Model:
         self.barrier_iterations = 0
         self.kkt_backend = None  # backend instance used by the last solve
         self._probe_cache = None  # (pattern fingerprint, backend name)
-        # Per-phase wall-clock seconds: presolve / standard_form / ipm /
-        # extract / postsolve (the reference's TimerOutputs analogue).
+        # Per-phase seconds of the last optimize: presolve / standard_form
+        # / ipm / extract / postsolve (the reference's TimerOutputs
+        # analogue), each a sum of the call record's spans (_TIMINGS).
         self.timings: dict = {}
 
     def empty(self) -> None:
@@ -108,9 +115,26 @@ class Model:
 
     # ------------------------------------------------------------------
     def optimize(self) -> TerminationStatus:
-        """Solve the problem (reference: src/model.jl:67-154)."""
-        t0 = time.time()
+        """Solve the problem (reference: src/model.jl:67-154), as the call
+        record ``"optimize"`` (:mod:`tulip_tpu_torch.trace`); with
+        ``ProfileDir`` set, under torch.profiler, its trace written to
+        ``<ProfileDir>/ipm_trace.json``."""
+        t0 = time.perf_counter()
         self.timings = {}
+        with _profile_trace(self.params.ProfileDir, self.device), \
+                trace.call("optimize") as rec:
+            try:
+                self.status = self._solve()
+            finally:
+                spans = rec.spans()
+                for key, names in _TIMINGS.items():
+                    if any(n in spans for n in names):
+                        self.timings[key] = sum(spans.get(n, 0.0)
+                                                for n in names)
+        self.solve_time = time.perf_counter() - t0
+        return self.status
+
+    def _solve(self) -> TerminationStatus:
         params = self.params
         pb = self.pbdata
 
@@ -124,36 +148,39 @@ class Model:
         pb_ = pb
         self.presolve_data = None
         if params.Presolve.Level > 0:
-            t_ = time.time()
-            ps = PresolveData(pb, params.Presolve)
-            engine = getattr(params.Presolve, "Engine", "auto")
-            st = None
-            if engine in ("auto", "native"):
-                from .presolve.native import presolve_native
-                st = presolve_native(ps)
-                if st is None and engine == "native":
-                    raise RuntimeError("native presolve engine unavailable")
-            if st is None:
-                st = ps.presolve()
-            if st in (TerminationStatus.PRIMAL_INFEASIBLE,
-                      TerminationStatus.DUAL_INFEASIBLE):
-                st = ps.upgrade_if_both_infeasible()
-            self.timings["presolve"] = time.time() - t_
+            with trace.span("presolve_setup"):
+                ps = PresolveData(pb, params.Presolve)
+            with trace.span("presolve"):
+                engine = getattr(params.Presolve, "Engine", "auto")
+                st = None
+                if engine in ("auto", "native"):
+                    from .presolve.native import presolve_native
+                    with trace.span("presolve/native"):
+                        st = presolve_native(ps)
+                    if st is None and engine == "native":
+                        raise RuntimeError(
+                            "native presolve engine unavailable")
+                if st is None:
+                    st = ps.presolve()
+                if st in (TerminationStatus.PRIMAL_INFEASIBLE,
+                          TerminationStatus.DUAL_INFEASIBLE):
+                    st = ps.upgrade_if_both_infeasible()
+                decided = st in (TerminationStatus.OPTIMAL,
+                                 TerminationStatus.PRIMAL_INFEASIBLE,
+                                 TerminationStatus.DUAL_INFEASIBLE,
+                                 TerminationStatus.PRIMAL_DUAL_INFEASIBLE)
+                if not decided:
+                    with trace.span("presolve/reduce"):
+                        pb_ = ps.extract_reduced_arrays()
             self.presolve_data = ps
-            if st in (TerminationStatus.OPTIMAL,
-                      TerminationStatus.PRIMAL_INFEASIBLE,
-                      TerminationStatus.DUAL_INFEASIBLE,
-                      TerminationStatus.PRIMAL_DUAL_INFEASIBLE):
+            if decided:
                 # Presolve solved the problem (reference: model.jl:105-119).
                 sol0 = Solution(pb.ncon, pb.nvar)
                 postsolve(sol0, ps.solution, ps)
                 _validate_certificates(pb, sol0,
                                        tol=_certificate_tol(params))
                 self.solution = sol0
-                self.status = st
-                self.solve_time = time.time() - t0
-                return self.status
-            pb_ = ps.extract_reduced_arrays()
+                return st
             if params.OutputLevel > 0:
                 print("\nReduced problem info")
                 print(f"  Constraints : {ps.nrow}  "
@@ -174,73 +201,63 @@ class Model:
                 self.solution = sol_inner
             _validate_certificates(pb, self.solution,
                                    tol=_certificate_tol(params))
-            self.status = st
-            self.solve_time = time.time() - t0
-            return self.status
+            return st
 
         dtype = np.dtype(params.ArithmeticDtype)
         if dtype not in TORCH_DTYPES:
             raise ValueError(f"ArithmeticDtype {params.ArithmeticDtype!r}: "
                              "the port computes in float32 or float64")
-        t_ = time.time()
         # The sparse-first attempt comes before any dense (m, n) array.
         dat = self._sparse_first(pb_, dtype)
         A_host = None
         if dat is None:
-            A, b, c, c0, l, u, _ = standard_form_arrays(pb_)
-            # The probe and a structured backend's setup read A here, in
-            # the solve's dtype (as the reference reads its device array
-            # back).
-            A_host = A.astype(dtype, copy=False)
-        t_route = time.time()
-        backend, ipm_opts = self._route(pb_, dtype, A_host, sparse=dat)
-        t_route = time.time() - t_route
+            with trace.span("standard_form"):
+                A, b, c, c0, l, u, _ = standard_form_arrays(pb_)
+                # The probe and a structured backend's setup read A here,
+                # in the solve's dtype (as the reference reads its device
+                # array back).
+                A_host = A.astype(dtype, copy=False)
+        with trace.span("route"):
+            backend, ipm_opts = self._route(pb_, dtype, A_host, sparse=dat)
         if dat is None:
-            dat = make_lp_data(A_host, b, c, c0, l, u, device=self.device,
-                               dtype=TORCH_DTYPES[dtype])
+            with trace.span("to_device"):
+                dat = make_lp_data(A_host, b, c, c0, l, u,
+                                   device=self.device,
+                                   dtype=TORCH_DTYPES[dtype])
         n_struct = pb_.nvar
-        self.timings["standard_form"] = time.time() - t_ - t_route
 
         try:
             state = self._run_ipm(dat, backend, ipm_opts, params)
         except KeyboardInterrupt:
             # User interrupt: report UNKNOWN instead of crashing
             # (reference: src/IPM/HSD/HSD.jl:330-333).
-            self.status = TerminationStatus.UNKNOWN
-            self.solve_time = time.time() - t0
-            return self.status
+            return TerminationStatus.UNKNOWN
         except Exception as e:
             if _is_oom(e):
                 # Memory exhausted mid-solve (reference: HSD.jl:325-328).
-                self.status = TerminationStatus.MEMORY_LIMIT
-                self.solve_time = time.time() - t0
-                return self.status
+                return TerminationStatus.MEMORY_LIMIT
             raise
 
         self.solver_state = state
         self.barrier_iterations = int(state.niter)
 
         # Extract solution in (reduced) original space.
-        t_ = time.time()
-        sol_inner = Solution(pb_.ncon, pb_.nvar)
-        _extract_solution(sol_inner, pb_, _host_lane(_to_numpy(state), 0),
-                          n_struct)
-        self.timings["extract"] = time.time() - t_
+        with trace.span("extract"):
+            sol_inner = Solution(pb_.ncon, pb_.nvar)
+            _extract_solution(sol_inner, pb_,
+                              _host_lane(_to_numpy(state), 0), n_struct)
 
         if params.Presolve.Level > 0:
-            t_ = time.time()
-            sol_outer = Solution(pb.ncon, pb.nvar)
-            postsolve(sol_outer, sol_inner, self.presolve_data)
-            self.timings["postsolve"] = time.time() - t_
+            with trace.span("postsolve"):
+                sol_outer = Solution(pb.ncon, pb.nvar)
+                postsolve(sol_outer, sol_inner, self.presolve_data)
             self.solution = sol_outer
         else:
             self.solution = sol_inner
-        _validate_certificates(pb, self.solution,
-                               tol=_certificate_tol(params, dtype))
-
-        self.status = TerminationStatus(int(state.status))
-        self.solve_time = time.time() - t0
-        return self.status
+        with trace.span("certificates"):
+            _validate_certificates(pb, self.solution,
+                                   tol=_certificate_tol(params, dtype))
+        return TerminationStatus(int(state.status))
 
     def _sparse_first(self, pb_, dtype: np.dtype):
         """The sparse-first ``SparseLPData`` of the reduced problem on the
@@ -257,15 +274,17 @@ class Model:
             return None
         attempt = params.KKT.SparseFirst is True
         if not attempt and pb_.ncon >= params.KKT.SparseFirstThreshold:
-            sig = sparse_pattern_signals(pb_)
+            with trace.span("route"):
+                sig = sparse_pattern_signals(pb_)
             smw_ok = (sig["n_dense_cols"] == 0
                       or (sig["n_dense_cols"] <= 8
                           and sig["dense_norm_ratio"] <= 30.0))
             attempt = sig["density"] < 0.1 and smw_ok
         if not attempt:
             return None
-        res = sparse_lp_data_from_problem(pb_, dtype=TORCH_DTYPES[dtype],
-                                          device=self.device)
+        with trace.span("sparse_first"):
+            res = sparse_lp_data_from_problem(
+                pb_, dtype=TORCH_DTYPES[dtype], device=self.device)
         return None if res is None else res[0]
 
     def _route(self, pb_, dtype: np.dtype, A_host: Optional[np.ndarray],
@@ -373,12 +392,10 @@ class Model:
                 MehrotraStart=ipm_opts.MehrotraStart,
                 FastPredictor=ipm_opts.FastPredictor,
                 FastCorrections=ipm_opts.FastCorrections))
-        t_ = time.time()
-        with _profile_trace(params.ProfileDir, self.device):
+        with trace.span("ipm"):
             state = run()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        self.timings["ipm"] = time.time() - t_
         return state
 
 
@@ -386,7 +403,9 @@ class Model:
 def _profile_trace(profile_dir: str, device: torch.device):
     """Run the body under ``torch.profiler`` and write a Chrome trace to
     ``<profile_dir>/ipm_trace.json`` (the counterpart of the reference's
-    ``jax.profiler.trace``); a no-op when ``profile_dir`` is empty."""
+    ``jax.profiler.trace``, which covers the IPM; this one covers the
+    whole ``optimize``, its spans included); a no-op when ``profile_dir``
+    is empty."""
     if not profile_dir:
         yield
         return
