@@ -194,6 +194,26 @@ def test_model_timings_are_the_records_spans(calls, presolve, sparse_first):
     assert m.solve_time >= rec["wall_s"]
 
 
+def test_loaded_problem_is_solved_without_its_lists(calls):
+    """An optimize of a bulk-loaded ``staircase_lp(1024)`` reads its
+    matrix from the load's arrays: ``problem_lists_built`` stays 0 in the
+    ``load`` and ``optimize`` records, and the spans that ``load_s``,
+    ``prep_s`` and ``post_s`` read keep their names."""
+    from golden_large import staircase_lp
+
+    A, b, c, u = staircase_lp(1024)
+    coo = A.tocoo()
+    m = tlt.Model(device="cpu")
+    m.pbdata.load(True, c, 0.0, (coo.row, coo.col, coo.data), b, b,
+                  np.zeros(u.size), u)
+    assert m.optimize() == TerminationStatus.OPTIMAL
+    assert [r["entry"] for r in calls] == ["load", "optimize"]
+    assert all(r["counters"].get("problem_lists_built", 0) == 0
+               for r in calls)
+    assert {"presolve_setup", "presolve", "presolve/native",
+            "presolve/reduce", "postsolve"} <= set(calls[-1]["spans"])
+
+
 def test_sparse_first_plan_steps_are_spans(calls):
     from tulip_tpu_torch.ipm.sparse_data import sparse_lp_data_from_problem
 

@@ -57,10 +57,13 @@ from .solution import Solution  # noqa: E402
 from .status import SolutionStatus, TerminationStatus  # noqa: E402
 from . import trace  # noqa: E402
 from .presolve import native as _presolve_native  # noqa: E402
+from . import problem_arrays  # noqa: E402
 
-# problem.py and presolve/native.py stay byte-identical to the reference's,
-# so their call record and span are put on here.
-ProblemData.load = trace.call("load")(ProblemData.load)
+# problem.py and presolve/ stay byte-identical to the reference's, so the
+# array storage of a bulk-loaded matrix (with the "load" call record) and
+# the decode span are put on here.
+for _owner, _name, _fn in problem_arrays.INSTALLED:
+    setattr(_owner, _name, _fn)
 _presolve_native._decode_ops = trace.span("presolve/decode")(
     _presolve_native._decode_ops)
 
