@@ -15,6 +15,19 @@ objective, primal x, after postsolve where the entry has one) gives:
   can be judged).
 
 The worst answer sets each number.
+
+The reference is the configuration's own: its ``reference`` key names
+``references/<name>.py`` (``"box"`` where it names none), loaded by
+``harness.reference_of``. Such a module gives
+
+- ``build(item, device)``: the LP of one pool item on ``device``, with
+  ``b`` (B, m), ``c`` and ``u`` (B, n) as float64 tensors and
+  ``matvec(x)``, the product A·x of a (B, n) batch, made however the
+  reference keeps A (it need never be dense);
+- ``solve(lp, *, precision="float64", tol=1e-9)``: that LP solved, as a
+  ``reference.Solved`` (``converged``, ``obj``, ``x``, ``iters``).
+
+``build`` runs once for each pool item that the window answered.
 """
 
 from __future__ import annotations
@@ -25,8 +38,6 @@ import time
 import numpy as np
 import scipy.sparse as sp
 import torch
-
-from .reference import solve_box_lp
 
 
 def box_batch(item: dict, device) -> tuple:
@@ -52,17 +63,19 @@ def _inf(v: torch.Tensor) -> torch.Tensor:
     return v.abs().amax(-1)
 
 
-def compare(pool: list, records: list, device) -> dict:
+def compare(pool: list, records: list, device, reference) -> dict:
     """The numbers above over every answer of ``records`` (each with its
-    pool ``item`` and ``answers``: ``optimal``, ``obj``, ``x``)."""
+    pool ``item`` and ``answers``: ``optimal``, ``obj``, ``x``), against
+    the module ``reference``."""
     by_item = {}
     for r in records:
         by_item.setdefault(r.item, []).append(r.answers)
     out = dict(not_optimal=0, obj_err=0.0, primal_res=0.0, ref_unsolved=0)
     t0 = time.perf_counter()
     for k in sorted(by_item):
-        A, b, c, u = box_batch(pool[k], device)
-        ref = solve_box_lp(A, b, c, u)
+        lp = reference.build(pool[k], device)
+        b, c, u = lp.b, lp.c, lp.u
+        ref = reference.solve(lp)
         out["ref_unsolved"] += int((~ref.converged).sum())
         scale = ref.obj.abs().clamp(min=1.0)
         for ans in by_item[k]:
@@ -75,7 +88,7 @@ def compare(pool: list, records: list, device) -> dict:
             err = ((c * x).sum(-1) - ref.obj).abs()
             err = torch.maximum(err, torch.where(
                 obj.isfinite(), (obj - ref.obj).abs(), err)) / scale
-            res = _inf((A @ x.unsqueeze(-1)).squeeze(-1) - b) / (1 + _inf(b))
+            res = _inf(lp.matvec(x) - b) / (1 + _inf(b))
             viol = torch.maximum((-x).clamp(min=0), (x - u).clamp(min=0))
             res = torch.maximum(res, _inf(viol) / (1 + _inf(u)))
             inf = float("inf")

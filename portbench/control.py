@@ -1,25 +1,26 @@
 """The control of a configuration whose program has no lower-precision
-path of its own that changes its answers: the plain reference, put in the
-program's place and computed in the precision the configuration's
-``control`` names. It stands in for an entry (see ``entries/``)."""
+path of its own that changes its answers: the configuration's plain
+reference (``harness.reference_of``), put in the program's place and
+computed in the precision the configuration's ``control`` names. It
+stands in for an entry (see ``entries/``)."""
 
 from __future__ import annotations
 
-from .check import box_batch
-from .reference import solve_box_lp
+from .harness import reference_of
 
 SPANS = ()
 
 
 def prepare(cfg, traffic, pool, device, control=None):
-    return dict(pool=pool, device=device, precision=control["precision"],
-                tol=control["tolerance"])
+    return dict(pool=pool, device=device, reference=reference_of(cfg),
+                precision=control["precision"], tol=control["tolerance"])
 
 
 def request(prog, i):
     item = prog["pool"][i % len(prog["pool"])]
-    r = solve_box_lp(*box_batch(item, prog["device"]),
-                     precision=prog["precision"], tol=prog["tol"])
+    ref = prog["reference"]
+    r = ref.solve(ref.build(item, prog["device"]),
+                  precision=prog["precision"], tol=prog["tol"])
     answers = dict(optimal=r.converged.cpu().numpy(),
                    obj=r.obj.double().cpu().numpy(),
                    x=r.x.double().cpu().numpy())

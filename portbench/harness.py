@@ -6,7 +6,10 @@ metric is a file of its own, found by the name that ``BENCHMARK.json``
 gives it:
 
 - ``configs/<config>.json``: the configuration (the ``file`` of its entry);
-  its ``generator`` names ``generators/<generator>.py``;
+  its ``generator`` names ``generators/<generator>.py``, and its
+  ``reference`` (``"box"`` where it has none) ``references/<reference>.py``,
+  the plain reference that the check and the control call (``check.py``
+  gives its interface);
 - ``traffic/<traffic>.json``: the traffic mix; its ``entry`` names
   ``entries/<entry>.py``, the adapter that hands the program its inputs;
 - ``limits/<workload>.json``: the limit of each number the check compares;
@@ -56,6 +59,11 @@ def load_module(path: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference_of(cfg: dict):
+    """The configuration's plain reference module."""
+    return load_module(f"references/{cfg.get('reference', 'box')}.py")
 
 
 def load_json(path: str) -> dict:
@@ -270,6 +278,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: int, *,
     cuda = dev.type == "cuda"
     gen = load_module(f"generators/{cfg['generator']}.py")
     entry = load_module(f"entries/{traffic['entry']}.py")
+    reference = reference_of(cfg)
     control = cfg["control"] if control else None
     if control is not None and control["kind"] == "reference":
         from . import control as entry
@@ -280,53 +289,58 @@ def run_cell(workload: str, seed: int, seconds: float, trace: int, *,
 
     pool = gen.pool(cfg, traffic, seed, dev)
     prog = entry.prepare(cfg, traffic, pool, dev, control=control)
-    spans = Spans()
-    with spans.installed(entry.SPANS if trace else (), cuda):
-        entry.request(prog, 0)                  # the warm request
-        sync()
-        from tulip_tpu_torch.ipm import graph
-        setup_s = time.perf_counter() - t_start
-        setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        built0 = graph.CAPTURES
-        records = []
-        t0 = time.perf_counter()
-        i = 0
-        while time.perf_counter() - t0 < seconds:
-            spans.current = []
-            r0 = time.perf_counter()
-            n, answers, stats = entry.request(prog, i)
-            records.append(SimpleNamespace(
-                s=time.perf_counter() - r0, n=n, item=i % len(pool),
-                answers=answers, stats=stats, spans=spans.current))
-            i += 1
-        window_s = time.perf_counter() - t0
-        window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-        built = graph.CAPTURES - built0
-        profile = None
-        if trace:
-            spans.current = []
-            profile = profile_slice(
-                entry, prog, i, float(traffic.get("trace_seconds", 1.0)),
-                [s[2] for s in entry.SPANS], cuda)
+    try:
+        spans = Spans()
+        with spans.installed(entry.SPANS if trace else (), cuda):
+            entry.request(prog, 0)                  # the warm request
+            sync()
+            from tulip_tpu_torch.ipm import graph
+            setup_s = time.perf_counter() - t_start
+            setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            built0 = graph.CAPTURES
+            records = []
+            t0 = time.perf_counter()
+            i = 0
+            while time.perf_counter() - t0 < seconds:
+                spans.current = []
+                r0 = time.perf_counter()
+                n, answers, stats = entry.request(prog, i)
+                records.append(SimpleNamespace(
+                    s=time.perf_counter() - r0, n=n, item=i % len(pool),
+                    answers=answers, stats=stats, spans=spans.current))
+                i += 1
+            window_s = time.perf_counter() - t0
+            window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            built = graph.CAPTURES - built0
+            profile = None
+            if trace:
+                spans.current = []
+                profile = profile_slice(
+                    entry, prog, i, float(traffic.get("trace_seconds", 1.0)),
+                    [s[2] for s in entry.SPANS], cuda)
+        described = entry.describe(prog)
+    finally:
+        # Also where a request raised: an entry that started processes
+        # in ``prepare`` stops them in ``release``.
+        entry.release(prog)
     if profile is not None:
         log(f"{workload}: traced slice of {profile.requests} requests in "
             f"{profile.window_s:.3f} s, device busy {profile.busy_s:.3f} s")
     log(f"{workload}: seed {seed}, {len(records)} requests in "
-        f"{window_s:.3f} s, set-up {setup_s:.3f} s; {entry.describe(prog)}; "
+        f"{window_s:.3f} s, set-up {setup_s:.3f} s; {described}; "
         f"device programs built in the window: {built}")
     if built:
         log(f"{workload}: WARNING: {built} device programs were built "
             "inside the window")
 
     # The check, once the program's state is freed.
-    entry.release(prog)
     del prog
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers = check.compare(pool, records, dev)
+    numbers = check.compare(pool, records, dev, reference)
     del pool
     checks = {k: {"value": v, "limit": limits[k]}
               for k, v in numbers.items()}

@@ -211,8 +211,9 @@ def test_reference_solves_a_staircase_lp():
 
 
 def test_benchmark_json_names_a_file_for_every_piece():
-    """Each cell finds its configuration, traffic mix, entry, generator
-    and limits, and each metric its reader, by name."""
+    """Each cell finds its configuration, traffic mix, entry, generator,
+    plain reference (``box`` where the configuration names none) and
+    limits, and each metric its reader, by name."""
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     for w in bench["workloads"]:
@@ -221,6 +222,8 @@ def test_benchmark_json_names_a_file_for_every_piece():
                                            cfg["generator"] + ".py"))
         assert os.path.exists(os.path.join(HERE, "entries",
                                            traffic["entry"] + ".py"))
+        assert os.path.exists(os.path.join(
+            HERE, "references", cfg.get("reference", "box") + ".py"))
         assert set(limits) == {"not_optimal", "obj_err", "primal_res",
                                "ref_unsolved"}
     for m in bench["end_to_end"] + bench["per_layer"]:
