@@ -74,9 +74,9 @@ def test_schur_device_program_equals_host_loop(algo, refine):
 
 
 def test_captured_collectives_count_once_a_replay():
-    """A collective recorded while capturing counts nothing then, and is
-    credited once for every replay of its graph; a warm-up's counts
-    nowhere."""
+    """A collective recorded while capturing (with its name, the op where
+    the caller gives none) counts nothing then, and is credited once for
+    every replay of its graph; a warm-up's counts nowhere."""
     comm = Comm()
     recorded = []
     graph._CTX.collectives = recorded
@@ -89,8 +89,10 @@ def test_captured_collectives_count_once_a_replay():
     with graph._device_mode(warmup=True):
         comm.all_reduce_and(torch.ones(5, dtype=torch.bool))
     assert comm.counts == collections.Counter() and comm.nbytes == 0
-    for c, key, nbytes in recorded:
-        graph._credit_collective(c, key, nbytes, 7)
+    assert [name for *_, name in recorded] == ["all_reduce_sum",
+                                               "all_gather_blocks"]
+    for c, key, nbytes, name in recorded:
+        graph._credit_collective(c, key, nbytes, name, 7)
     comm.all_reduce_sum(torch.ones(3))
     assert comm.counts == {("all_reduce_sum", 3): 8,
                            ("all_gather_blocks", 8): 7}

@@ -120,7 +120,8 @@ class _Ctx:
     warmup = False
     # Launches recorded while capturing: (module, shape, counter increments).
     captured: list = None
-    # Collectives recorded while capturing: (Comm, (op, numel), bytes).
+    # Collectives recorded while capturing: (Comm, (op, numel), bytes,
+    # name).
     collectives: list = None
     # The recorder of the pass being captured.
     recorder: "_Recorder" = None
@@ -240,15 +241,16 @@ def count_launch(module, shape, **incs) -> None:
         _credit(module, shape, incs, 1)
 
 
-def count_collective(comm, key: tuple, nbytes: int) -> None:
+def count_collective(comm, key: tuple, nbytes: int, name: str) -> None:
     """Count one collective of ``comm`` (:class:`..parallel.comm.Comm`):
-    ``key`` is ``(op, numel)``. Under capture it is credited once for every
-    replay of the pass when the solve ends, as :func:`count_launch` credits
-    a kernel; a warm-up's collectives count nowhere."""
+    ``key`` is ``(op, numel)``, ``name`` the call's label in the call
+    record. Under capture it is credited once for every replay of the pass
+    when the solve ends, as :func:`count_launch` credits a kernel; a
+    warm-up's collectives count nowhere."""
     if _CTX.collectives is not None:
-        _CTX.collectives.append((comm, key, nbytes))
+        _CTX.collectives.append((comm, key, nbytes, name))
     elif not _CTX.warmup:
-        _credit_collective(comm, key, nbytes, 1)
+        _credit_collective(comm, key, nbytes, name, 1)
 
 
 def _credit(module, shape, incs: dict, times: int) -> None:
@@ -260,10 +262,15 @@ def _credit(module, shape, incs: dict, times: int) -> None:
         module.SHAPES.add(shape)
 
 
-def _credit_collective(comm, key: tuple, nbytes: int, times: int) -> None:
+def _credit_collective(comm, key: tuple, nbytes: int, name: str,
+                       times: int) -> None:
     if times > 0:
         comm.counts[key] += times
         comm.nbytes += nbytes * times
+        trace.count("collectives", times)
+        trace.count("comm_bytes", nbytes * times)
+        trace.count(f"collectives/{name}", times)
+        trace.count(f"comm_bytes/{name}", nbytes * times)
 
 
 def assign(dst, src, frozen: frozenset = frozenset()) -> None:
@@ -606,8 +613,8 @@ class Program:
                 if isinstance(g, _Segment):
                     name = module.__name__.rsplit(".", 1)[-1]
                     per_pass[name] = per_pass.get(name, 0) + 1
-            for comm, key, nbytes in g.collectives:
-                _credit_collective(comm, key, nbytes, times)
+            for comm, key, nbytes, name in g.collectives:
+                _credit_collective(comm, key, nbytes, name, times)
             g.replays = 0
         return per_pass
 

@@ -46,6 +46,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..status import SolutionStatus, TerminationStatus
 from . import graph
 from .data import LPData, matvec, rmatvec
@@ -717,10 +718,14 @@ def _log_row(k: int, s: HSDState, ttot: float, algo: str) -> None:
           f"{float(s.pt.mu):7.1e}  {ttot:.2f}")
 
 
+@trace.call("hsd_solve")
 def hsd_solve(dat: LPData, backend, opts: HSDOptions,
               log_fn=None) -> HSDState:
     """Solve one LP: ``dat`` is a batch of one (see ``make_lp_data``).
-    ``log_fn(state)`` is called after every iteration."""
+    ``log_fn(state)`` is called after every iteration. A direct call opens
+    the call record ``"hsd_solve"`` (:mod:`tulip_tpu_torch.trace`: the
+    device program's passes and host reads, the collectives of the data's
+    group); inside ``Model.optimize`` they add to its record."""
     if dat.b.shape[0] != 1:
         raise ValueError(f"hsd_solve takes one LP, got a batch of "
                          f"{dat.b.shape[0]}; use batched_hsd_solve")

@@ -16,13 +16,17 @@ whole on every process; each reads its own scenarios' segments.
 The reference's two ``Σk`` become explicit calls on the state's
 :class:`~tulip_tpu_torch.parallel.comm.Comm` (GSPMD inserts them there):
 
-- ``update``: one all-reduce of the n0×n0 Schur matrix G, and one AND of
-  the per-lane factorization flag. The reference's ``ok_k`` reduces over
-  the whole scenario axis; without the AND one process would bump its
-  regularization and another would not, and they would part ways.
-- ``solve``: one all-reduce of an n0-vector per base solve and per
-  refinement residual, and one gather of the scenario blocks of dx and dy
-  at the end. Refinement runs on this process's blocks only.
+- ``update``: one all-reduce of the n0×n0 Schur matrix G
+  (``schur_reduce`` in the call record's counters), and one AND of the
+  per-lane factorization flag (``factor_ok``). The reference's ``ok_k``
+  reduces over the whole scenario axis; without the AND one process would
+  bump its regularization and another would not, and they would part
+  ways.
+- ``solve``: one all-reduce of an n0-vector per base solve
+  (``solve_reduce``) and per refinement residual (``aty_reduce``), and
+  one gather of the scenario blocks of dx and dy at the end
+  (``solve_gather``: K·(mk + nk) elements, the largest collective from
+  K = n0²/(mk + nk) on). Refinement runs on this process's blocks only.
 
 Everything outside the scenario blocks is computed from the same inputs
 by the same operations on every process, so the replicated state stays
@@ -74,7 +78,8 @@ def aty_blocks(A0, T, W, comm, y0, yk):
     """Aᵀ·y by blocks: (A0ᵀ y0 + Σk Tkᵀ yk summed over the group, Wkᵀ yk
     for the held k)."""
     return (bmtv(A0, y0)
-            + comm.all_reduce_sum(torch.einsum("bkij,bki->bj", T, yk)),
+            + comm.all_reduce_sum(torch.einsum("bkij,bki->bj", T, yk),
+                                  name="aty_reduce"),
             bmtv(W, yk))
 
 
@@ -83,8 +88,8 @@ def block_matvec(A0, T, W, comm, x: torch.Tensor) -> torch.Tensor:
     B, Kl, mk, n0 = T.shape
     top, scen = ax_blocks(A0, T, W, x[:, :n0],
                           segments(x, n0, W.shape[-1], Kl, comm.rank))
-    return torch.cat([top, comm.all_gather_blocks(scen, 1).reshape(B, -1)],
-                     -1)
+    return torch.cat([top, comm.all_gather_blocks(
+        scen, 1, name="ax_gather").reshape(B, -1)], -1)
 
 
 def block_rmatvec(A0, T, W, comm, y: torch.Tensor) -> torch.Tensor:
@@ -93,8 +98,8 @@ def block_rmatvec(A0, T, W, comm, y: torch.Tensor) -> torch.Tensor:
     m0 = A0.shape[-2]
     top, scen = aty_blocks(A0, T, W, comm, y[:, :m0],
                            segments(y, m0, mk, Kl, comm.rank))
-    return torch.cat([top, comm.all_gather_blocks(scen, 1).reshape(B, -1)],
-                     -1)
+    return torch.cat([top, comm.all_gather_blocks(
+        scen, 1, name="aty_gather").reshape(B, -1)], -1)
 
 
 def _cho_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -170,7 +175,7 @@ class SchurK1Backend(KKTBackend):
         # the whole scenario axis.
         M = (W * dk.unsqueeze(-2)) @ W.mT + torch.diag_embed(regDk)
         Lk, ok_k = _factor(M)
-        ok_k = comm.all_reduce_and(ok_k)
+        ok_k = comm.all_reduce_and(ok_k, name="factor_ok")
         eye_k = torch.eye(mk, dtype=M.dtype, device=M.device)
         Lk = torch.where(ok_k[:, None, None, None], Lk, eye_k)
 
@@ -178,7 +183,7 @@ class SchurK1Backend(KKTBackend):
         # n0×n0 all-reduce.
         Z = torch.linalg.solve_triangular(Lk, T, upper=False)
         Zf = Z.reshape(B, Kl * mk, n0)
-        G = comm.all_reduce_sum(Zf.mT @ Zf)
+        G = comm.all_reduce_sum(Zf.mT @ Zf, name="schur_reduce")
 
         # First-stage system S = D0⁻¹ + G + A0ᵀ Rd0⁻¹ A0 (replicated).
         S = (torch.diag_embed(1.0 / d0) + G
@@ -211,7 +216,7 @@ class SchurK1Backend(KKTBackend):
 
         # t = ξd0 − Σk Tkᵀ uk  (the n0-vector all-reduce).
         t = xd0 - state.comm.all_reduce_sum(
-            torch.einsum("bkij,bki->bj", T, uk))
+            torch.einsum("bkij,bki->bj", T, uk), name="solve_reduce")
 
         # First-stage solve (replicated).
         rhs0 = bmtv(A0, xp0 / state.regD0) - t
@@ -247,7 +252,8 @@ class SchurK1Backend(KKTBackend):
         """Flat (dx, dy), whole on every process: one gather of the held
         blocks of both."""
         B, nk = dx0.shape[0], dxk.shape[-1]
-        both = state.comm.all_gather_blocks(torch.cat([dxk, dyk], -1), 1)
+        both = state.comm.all_gather_blocks(torch.cat([dxk, dyk], -1), 1,
+                                            name="solve_gather")
         return (torch.cat([dx0, both[..., :nk].reshape(B, -1)], -1),
                 torch.cat([dy0, both[..., nk:].reshape(B, -1)], -1))
 

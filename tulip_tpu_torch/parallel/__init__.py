@@ -3,13 +3,14 @@
 through :class:`Comm`."""
 
 from .block_angular import (BlockAngularLPData, block_angular_to_dense,
-                            make_block_angular, pad_scenarios,
-                            shard_scenarios)
+                            make_block_angular, make_block_angular_share,
+                            pad_scenarios, shard_scenarios)
 from .comm import Comm, init_comm
 
 __all__ = [
     "BlockAngularLPData",
     "make_block_angular",
+    "make_block_angular_share",
     "block_angular_to_dense",
     "pad_scenarios",
     "shard_scenarios",

@@ -15,7 +15,9 @@ lflag, uflag over all rows and columns, with a lane axis of 1 for one LP.
 
 :func:`shard_scenarios` keeps one process's contiguous share of the
 scenario blocks of T and W (the reference's ``NamedSharding`` of the K
-axis) and leaves A0 and the flat vectors whole on every process. The data
+axis) and leaves A0 and the flat vectors whole on every process;
+:func:`make_block_angular_share` makes the same share from that process's
+blocks alone, so no process holds the others' blocks. The data
 carries the :class:`~.comm.Comm` of its scenario axis into A·x and Aᵀ·y
 (:func:`~tulip_tpu_torch.kkt.schur.block_matvec`,
 :func:`~tulip_tpu_torch.kkt.schur.block_rmatvec`) and into the Schur
@@ -29,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..ipm.data import LPData, register_operator
 from ..kkt.schur import block_matvec, block_rmatvec
 from .comm import Comm
@@ -126,6 +129,30 @@ def make_block_angular(A0, b0, c0x, T, W, h, cks, l, u, c0=0.0, *,
         A0=t(A0), T=t(T), W=t(W), b=t(b), c=t(c), c0=t(c0),
         l=t(np.where(lflag, l, 0.0)), u=t(np.where(uflag, u, 0.0)),
         lflag=t(lflag), uflag=t(uflag), comm=Comm())
+
+
+@trace.call("share")
+def make_block_angular_share(A0, b0, c0x, T, W, h, cks, l, u, c0=0.0, *,
+                             comm: Comm, device="cuda",
+                             dtype=torch.float64) -> BlockAngularLPData:
+    """This process's share of one LP over ``comm``, from host arrays: the
+    first stage (``A0``, ``b0``, ``c0x``) and the flat ``h`` (K, mk),
+    ``cks`` (K, nk), ``l`` and ``u`` whole, and ``T`` (Kl, mk, n0) and
+    ``W`` (Kl, mk, nk) of this rank's Kl = K/size contiguous scenarios
+    only, which are all that go to the device. Equal, field by field and
+    bit for bit, to ``shard_scenarios(make_block_angular(...), comm)`` of
+    the whole LP. Opens the call record ``"share"`` (its span ``share``
+    encloses the copies to the device)."""
+    h = np.asarray(h, dtype=np.float64)
+    K, Kl = h.shape[0], np.shape(T)[0]
+    if Kl * comm.size != K or np.shape(W)[0] != Kl:
+        raise ValueError(f"rank {comm.rank} of {comm.size} holds "
+                         f"{K // comm.size} of K = {K} scenarios; got "
+                         f"{Kl} blocks of T and {np.shape(W)[0]} of W")
+    with trace.span("share"):
+        dat = make_block_angular(A0, b0, c0x, T, W, h, cks, l, u, c0,
+                                 device=device, dtype=dtype)
+    return dat._replace(comm=comm)
 
 
 def pad_scenarios(dat: BlockAngularLPData, K_pad: int) -> BlockAngularLPData:

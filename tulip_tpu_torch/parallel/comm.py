@@ -24,6 +24,10 @@ Every call records ``(op, numel)`` in :attr:`Comm.counts` (and its bytes
 in :attr:`Comm.nbytes`), the port's stand-in for the reference's check of
 the collectives in the compiled program (``__graft_entry__.py:252-276``).
 A collective captured in a device program counts once for every replay.
+The open call record (:mod:`tulip_tpu_torch.trace`) counts the same calls
+and bytes, in all (``collectives``, ``comm_bytes``) and by the name the
+caller gives the call (``collectives/<name>``, ``comm_bytes/<name>``; the
+op where it gives none).
 """
 
 from __future__ import annotations
@@ -57,10 +61,12 @@ class Comm:
         self.counts.clear()
         self.nbytes = 0
 
-    def _record(self, op: str, numel: int, itemsize: int) -> None:
+    def _record(self, op: str, numel: int, itemsize: int,
+                name: Optional[str]) -> None:
         from ..ipm import graph
 
-        graph.count_collective(self, (op, numel), numel * itemsize)
+        graph.count_collective(self, (op, numel), numel * itemsize,
+                               name or op)
 
     def _run(self, fn, t: torch.Tensor, shape, dtype) -> torch.Tensor:
         """``fn`` (a collective) of ``t`` where the group's backend takes
@@ -78,9 +84,11 @@ class Comm:
             return graph.host_op(fn, t, shape, dtype)
         return fn(t.contiguous())
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the group, the same bits on every rank."""
-        self._record("all_reduce_sum", t.numel(), t.element_size())
+    def all_reduce_sum(self, t: torch.Tensor,
+                       name: Optional[str] = None) -> torch.Tensor:
+        """The sum of ``t`` over the group, the same bits on every rank;
+        ``name`` labels the call in the call record's counters."""
+        self._record("all_reduce_sum", t.numel(), t.element_size(), name)
         if self.group is None:
             return t
 
@@ -90,9 +98,11 @@ class Comm:
             return x
         return self._run(fn, t, t.shape, t.dtype)
 
-    def all_reduce_and(self, flag: torch.Tensor) -> torch.Tensor:
+    def all_reduce_and(self, flag: torch.Tensor,
+                       name: Optional[str] = None) -> torch.Tensor:
         """Elementwise AND of a boolean tensor over the group."""
-        self._record("all_reduce_and", flag.numel(), flag.element_size())
+        self._record("all_reduce_and", flag.numel(), flag.element_size(),
+                     name)
         if self.group is None:
             return flag
 
@@ -104,7 +114,7 @@ class Comm:
 
     def all_gather_blocks(self, t: torch.Tensor, dim: int = 0,
                           counts: Optional[Sequence[int]] = None,
-                          ) -> torch.Tensor:
+                          name: Optional[str] = None) -> torch.Tensor:
         """Every rank's block of ``t`` concatenated along ``dim``, ranks in
         order. ``counts[r]`` is rank r's extent along ``dim`` (default:
         all equal to this rank's); unequal blocks travel padded to the
@@ -116,7 +126,7 @@ class Comm:
         numel = torch.Size(shape).numel()
         # The gathered result's elements: what the reference's HLO check
         # reads as the size of an all-gather.
-        self._record("all_gather_blocks", numel, t.element_size())
+        self._record("all_gather_blocks", numel, t.element_size(), name)
         if self.group is None:
             return t
         width = max(counts)

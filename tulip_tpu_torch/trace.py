@@ -1,10 +1,12 @@
 """Spans and call records of the port's host phases.
 
 A public entry opens a call record (:class:`call`): ``Model.optimize``
-(``"optimize"``), ``ProblemData.load`` (``"load"``) and ``batch_linprog``
-(``"batch_linprog"``). Inside it, each :class:`span` adds its seconds and
-one count under its name, and :func:`count` adds to a counter; repeats
-sum, so the 128 per-problem ``load`` spans of a batch make one figure. A
+(``"optimize"``), ``ProblemData.load`` (``"load"``), ``batch_linprog``
+(``"batch_linprog"``), ``ipm.hsd_solve`` (``"hsd_solve"``) and
+``parallel.make_block_angular_share`` (``"share"``). Inside it, each
+:class:`span` adds its seconds and one count under its name, and
+:func:`count` adds to a counter; repeats sum, so the 128 per-problem
+``load`` spans of a batch make one figure. A
 call opened inside another adds to the outer record. On exit the record
 goes to :data:`CALLS`, the process's record of its recent calls::
 
