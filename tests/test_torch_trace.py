@@ -214,6 +214,55 @@ def test_loaded_problem_is_solved_without_its_lists(calls):
             "presolve/reduce", "postsolve"} <= set(calls[-1]["spans"])
 
 
+def test_level_plan_counts_its_block_pairs(calls, monkeypatch):
+    """A sparse-first optimize of a bulk-loaded ``staircase_lp(1024)``
+    counts the K pattern's block coordinates handed to the level plan's
+    order (``level_plan/entries``) and the distinct block pairs passed on
+    (``level_plan/block_pairs``), as numpy counts them; the plan's spans
+    and ``problem_lists_built`` are unchanged."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from golden_large import staircase_lp
+    from tulip_tpu_torch.kkt import sparse as tsparse
+
+    patterns = []
+    plan = tsparse.k1_level_plan_pattern
+
+    def recording(pattern, shape, block, *args, **kwargs):
+        patterns.append((pattern.copy(), shape, block))
+        return plan(pattern, shape, block, *args, **kwargs)
+
+    monkeypatch.setattr(tsparse, "k1_level_plan_pattern", recording)
+    A, b, c, u = staircase_lp(1024)
+    coo = A.tocoo()
+    m = tlt.Model(device="cpu")
+    m.pbdata.load(True, c, 0.0, (coo.row, coo.col, coo.data), b, b,
+                  np.zeros(u.size), u)
+    m.params.KKT.SparseFirst = True
+    assert m.optimize() == TerminationStatus.OPTIMAL
+    rec = calls[-1]
+    assert [r["entry"] for r in calls] == ["load", "optimize"]
+
+    (pattern, shape, block), = patterns
+    K = sp.csr_matrix(pattern @ pattern.T)
+    perm = np.asarray(reverse_cuthill_mckee(K, symmetric_mode=True))
+    Kp = K[perm][:, perm].tocoo()
+    nbr = -(-shape[0] // block)
+    pairs = np.unique((Kp.row // block).astype(np.int64) * nbr
+                      + Kp.col // block).size
+    counters = rec["counters"]
+    assert counters["level_plan/entries"] == Kp.nnz
+    assert counters["level_plan/block_pairs"] == pairs
+    assert Kp.nnz > pairs > 0
+    # At this size the plan refuses the tiles after its level plan.
+    assert [k for k in rec["times"] if k.startswith("sparse_first/")] == [
+        "sparse_first/coo", "sparse_first/csr", "sparse_first/dense_cols",
+        "sparse_first/level_plan"]
+    assert all(r["counters"].get("problem_lists_built", 0) == 0
+               for r in calls)
+
+
 def test_sparse_first_plan_steps_are_spans(calls):
     from tulip_tpu_torch.ipm.sparse_data import sparse_lp_data_from_problem
 

@@ -5,7 +5,10 @@ design (nested dissection over the tile graph, block columns grouped into
 ~2·log₂(nb) independent elimination levels, one batched Cholesky, one
 batched triangular inverse or solve and one batched GEMM + scatter-add a
 level). The host functions (``nd_block_order``, ``tile_fill``,
-``column_levels`` and their helpers) are verbatim copies. The plan
+``column_levels`` and their helpers) are verbatim copies;
+``nd_block_order_pairs`` and ``tile_fill_pairs`` are the port's fronts of
+the first two, which ``kkt/sparse.py`` and ``kkt/sparse_ldl.py`` bind to
+their names: the same results from each distinct block pair once. The plan
 (:class:`LevelSeg`, :class:`LevelPlan`, :func:`build_level_plan`) is the
 same plan, with torch index tensors (int64) on an explicit device.
 
@@ -33,6 +36,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .base import bmtv, bmv
 
 
@@ -142,6 +146,46 @@ def tile_fill(bi, bj, nbr) -> List[List[int]]:
             for y in range(x + 1, len(rows)):
                 cols[rows[x]].add(rows[y])
     return [sorted(c) for c in cols]
+
+
+# ---------------------------------------------------------------------------
+# Host: fronts that hand the two functions above each block pair once
+# ---------------------------------------------------------------------------
+
+def distinct_pairs(bi, bj, nbr: int):
+    """``bi``/``bj`` without their repeated (bi, bj) pairs: the first
+    occurrence of each pair, in the order of first occurrence.
+
+    :func:`nd_block_order` and :func:`tile_fill` do nothing with a pair
+    but ``set.add`` it, and a repeated ``add`` changes neither a set's
+    contents nor its iteration order, so on these pairs both return what
+    they return on all of ``bi``/``bj``. A sorted order would not do:
+    ``nd_block_order``'s adjacency sets iterate in their insertion order.
+    """
+    bi, bj = np.asarray(bi), np.asarray(bj)
+    key_dtype = np.int32 if nbr * nbr < 2 ** 31 else np.int64
+    key = bi.astype(key_dtype) * key_dtype(nbr) + bj.astype(key_dtype)
+    first = np.unique(key, return_index=True)[1]
+    first.sort()
+    return bi[first], bj[first]
+
+
+def nd_block_order_pairs(bi, bj, nbr: int, last: Sequence[int] = (),
+                         leaf: int = 2) -> np.ndarray:
+    """:func:`nd_block_order` on the distinct pairs of ``bi``/``bj``:
+    the same order. Counts the coordinates handed in
+    (``level_plan/entries``) and the pairs passed on
+    (``level_plan/block_pairs``) in the open call record, once a plan."""
+    bi_d, bj_d = distinct_pairs(bi, bj, nbr)
+    trace.count("level_plan/entries", len(bi))
+    trace.count("level_plan/block_pairs", len(bi_d))
+    return nd_block_order(bi_d, bj_d, nbr, last=last, leaf=leaf)
+
+
+def tile_fill_pairs(bi, bj, nbr: int) -> List[List[int]]:
+    """:func:`tile_fill` on the distinct pairs of ``bi``/``bj``: the same
+    fill."""
+    return tile_fill(*distinct_pairs(bi, bj, nbr), nbr)
 
 
 def column_levels(col_rows: List[List[int]]) -> np.ndarray:
