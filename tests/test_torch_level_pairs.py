@@ -1,9 +1,7 @@
-"""The port's fronts of the level plans' host functions
-(``kkt/levels.py``: ``nd_block_order_pairs``, ``tile_fill_pairs``, which
-``kkt/sparse.py`` and ``kkt/sparse_ldl.py`` bind to ``nd_block_order`` and
-``tile_fill``) hand the verbatim functions each distinct block pair once:
-the plans come out integer for integer as the JAX package's verbatim plans,
-which see every scalar entry of the K pattern. CPU tests."""
+"""The level plans' host functions ``nd_block_order`` and ``tile_fill``
+(``kkt/levels.py``) take each distinct block pair once: the plans come out
+integer for integer as the JAX package's verbatim plans, which see every
+scalar entry of the K pattern. CPU tests."""
 
 import numpy as np
 import pytest
@@ -67,16 +65,6 @@ def assert_same_k1_plan(got, want):
         assert_same_level_plan(got["plan"], want["plan"])
 
 
-def test_plans_call_the_fronts():
-    """The names the verbatim plans call are the fronts; ``kkt.levels``
-    keeps the verbatim functions under their own names."""
-    for mod in (tsparse, tk2):
-        assert mod.nd_block_order is tlevels.nd_block_order_pairs
-        assert mod.tile_fill is tlevels.tile_fill_pairs
-    assert tlevels.nd_block_order.__name__ == "nd_block_order"
-    assert tlevels.tile_fill.__name__ == "tile_fill"
-
-
 @pytest.mark.parametrize("lp", sorted(K1_LPS))
 def test_pattern_plan_is_the_verbatim_plan(lp):
     """``k1_level_plan_pattern`` on the sparse-first plan's pattern."""
@@ -103,7 +91,7 @@ def test_dense_plan_is_the_verbatim_plan(lp):
 @pytest.mark.parametrize("config", range(len(CONFIGS)))
 def test_fuzz_patterns_give_the_verbatim_plan(config):
     """The fuzz battery's LPs (the first 20 of a configuration), at block
-    sizes 1 and 2: the fronts' order and fill on the K pattern's block
+    sizes 1 and 2: the port's order and fill on the K pattern's block
     coordinates, and the whole plan with its gates open (the gates refuse
     LPs this small and dense)."""
     for jm in config_lps(config)[:20]:
@@ -117,9 +105,9 @@ def test_fuzz_patterns_give_the_verbatim_plan(config):
             bi, bj = K.row // block, K.col // block
             last = [nbr - 1] if nbr > 1 else []
             np.testing.assert_array_equal(
-                tlevels.nd_block_order_pairs(bi, bj, nbr, last=last),
+                tlevels.nd_block_order(bi, bj, nbr, last=last),
                 jlevels.nd_block_order(bi, bj, nbr, last=last))
-            assert tlevels.tile_fill_pairs(bi, bj, nbr) == \
+            assert tlevels.tile_fill(bi, bj, nbr) == \
                 jlevels.tile_fill(bi, bj, nbr)
             if nbr <= 2:
                 continue
@@ -156,7 +144,7 @@ def test_k2_level_plan_is_the_verbatim_plan(lp, block):
 @pytest.mark.parametrize("seed", [0, 2, 7, 8])
 def test_scrambled_pairs_with_repeats(seed):
     """Block coordinates in a scrambled order, each pair repeated a
-    random number of times, with a non-empty ``last``: the fronts give
+    random number of times, with a non-empty ``last``: the port gives
     the verbatim order and fill, and pass on each pair once, in the order
     of its first occurrence."""
     rng = np.random.default_rng(seed)
@@ -183,21 +171,22 @@ def test_scrambled_pairs_with_repeats(seed):
         sorted(seen, key=seen.get)
 
     np.testing.assert_array_equal(
-        tlevels.nd_block_order_pairs(bi, bj, nbr, last=last),
+        tlevels.nd_block_order(bi, bj, nbr, last=last),
         jlevels.nd_block_order(bi, bj, nbr, last=last))
-    assert tlevels.tile_fill_pairs(bi, bj, nbr) == \
+    assert tlevels.tile_fill(bi, bj, nbr) == \
         jlevels.tile_fill(bi, bj, nbr)
 
 
 def test_front_counts_entries_and_pairs():
-    """``nd_block_order_pairs`` counts the coordinates handed in and the
-    distinct pairs passed on in the open call record."""
+    """``nd_block_order`` counts the coordinates handed in and the
+    distinct pairs it works on in the open call record; ``tile_fill``
+    counts nothing."""
     from tulip_tpu_torch import trace
 
     bi = np.array([0, 1, 0, 2, 1, 0, 2, 2])
     bj = np.array([1, 0, 1, 2, 0, 0, 1, 2])
     with trace.call("plan") as rec:
-        tlevels.nd_block_order_pairs(bi, bj, 3)
-        tlevels.tile_fill_pairs(bi, bj, 3)
+        tlevels.nd_block_order(bi, bj, 3)
+        tlevels.tile_fill(bi, bj, 3)
     assert rec.record["counters"] == {"level_plan/entries": 8,
                                       "level_plan/block_pairs": 5}

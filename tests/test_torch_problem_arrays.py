@@ -1,12 +1,11 @@
 """A bulk-loaded problem's matrix in CSR/CSC arrays
-(``tulip_tpu_torch/problem_arrays.py``): every replacement that
-``INSTALLED`` puts on the verbatim classes and module, and the
+(``tulip_tpu_torch/problem.py:ArrayProblemData``): every function of
+``problem.py`` and ``presolve/`` that reads the arrays, and the
 ``ArrayProblemData`` a load makes, give the verbatim path's output bit for
 bit; the first list read or mutation turns the problem back into plain
 lists, once. The verbatim path is the JAX package's code (the functions
-that ``problem.py`` and ``presolve/`` copy byte for byte), run on the
-port's module names, so it stays the verbatim code whatever the port
-installs."""
+that ``problem.py`` and ``presolve/`` edit in place), run on the port's
+module names, so it stays the verbatim code whatever the port edits."""
 
 import enum
 import struct
@@ -25,11 +24,11 @@ import tulip_tpu_torch as tlt
 from golden_large import staircase_lp
 from test_fuzz import random_general_lp
 from test_fuzz_xl import CONFIGS
-from tulip_tpu_torch import problem, problem_arrays as pa
+from tulip_tpu_torch import problem
 from tulip_tpu_torch import trace
 from tulip_tpu_torch.presolve import native, presolve
 from tulip_tpu_torch.presolve.presolve import PresolveData, postsolve
-from tulip_tpu_torch.problem import INF, ProblemData
+from tulip_tpu_torch.problem import INF, ArrayProblemData, ProblemData
 from tulip_tpu_torch.solution import Solution
 from tulip_tpu_torch.status import TerminationStatus
 
@@ -40,8 +39,8 @@ DATA = Path(__file__).resolve().parent / "data"
 
 def verbatim(fn, module):
     """The JAX package's ``fn`` run on the names of the port's
-    byte-identical ``module``: the verbatim code, with the port's classes
-    and enums, so that its results compare with the port's by type."""
+    ``module``: the verbatim code, with the port's classes and enums, so
+    that its results compare with the port's by type."""
     return types.FunctionType(fn.__code__, vars(module), fn.__name__,
                               fn.__defaults__)
 
@@ -164,7 +163,7 @@ def verbatim_ps(pb):
 def array_pb(args):
     pb = ProblemData()
     pb.load(*args)
-    assert type(pb) is pa.ArrayProblemData
+    assert type(pb) is ArrayProblemData
     return pb
 
 
@@ -199,7 +198,7 @@ def check_presolve_init(args):
     field of the workspace."""
     pv, pb = verbatim_pb(args), array_pb(args)
     same(workspace_state(PresolveData(pb)), workspace_state(verbatim_ps(pv)))
-    assert type(pb) is pa.ArrayProblemData
+    assert type(pb) is ArrayProblemData
 
 
 def check_presolve_native(args, monkeypatch):
@@ -226,7 +225,7 @@ def check_presolve_native(args, monkeypatch):
 
 def presolved(pb, verbatim_code=False):
     """``pb`` after the native presolve: the verbatim workspace and pass,
-    or the installed ones."""
+    or the port's."""
     if verbatim_code:
         ps = verbatim_ps(pb)
         assert VERBATIM_NATIVE(ps) is not None
@@ -257,16 +256,10 @@ PARITY = {"load": check_load, "__init__": check_presolve_init,
           "extract_reduced_arrays": check_extract}
 
 
-def test_every_replacement_is_installed():
-    for owner, name, fn in pa.INSTALLED:
-        assert getattr(owner, name) is fn
-    assert sorted(PARITY) == sorted(n for _, n, _ in pa.INSTALLED)
-
-
 @pytest.mark.parametrize("group", list(GROUPS))
-@pytest.mark.parametrize("name", [n for _, n, _ in pa.INSTALLED])
-def test_installed_replacement_gives_the_verbatim_bits(name, group,
-                                                       monkeypatch):
+@pytest.mark.parametrize("name", ["load", "__init__", "extract_reduced_arrays",
+                                  "presolve_native"])
+def test_array_path_gives_the_verbatim_bits(name, group, monkeypatch):
     check = PARITY[name]
     for args in lps_of(group):
         if check is check_presolve_native:
@@ -391,6 +384,6 @@ def test_a_reload_keeps_arrays_and_a_subclass_keeps_lists():
         sub = Sub()
         sub.load(*second)
     assert "problem_lists_built" not in rec.record["counters"]
-    assert type(pb) is pa.ArrayProblemData and type(sub) is Sub
+    assert type(pb) is ArrayProblemData and type(sub) is Sub
     same(pb.to_coo(), verbatim_pb(second).to_coo())
     same(vars(sub), vars(verbatim_pb(second)))

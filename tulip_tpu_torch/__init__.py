@@ -35,8 +35,9 @@ torch.linalg, cuBLAS and elementwise torch ops, as the reference's are
 XLA library calls.
 
 Host layers (problem data, parameters, statuses, presolve, MPS reading)
-are numpy code copied verbatim from ``tulip_tpu``, so this package runs
-where JAX is not installed. It does not change torch's global default
+are numpy code copied from ``tulip_tpu``, so this package runs where JAX is
+not installed; ``problem.py`` and ``presolve/`` keep a bulk-loaded matrix
+in CSR/CSC arrays. It does not change torch's global default
 dtype: every entry that builds tensors takes ``device`` (default
 ``"cuda"``) and ``dtype``.
 """
@@ -56,16 +57,6 @@ from .problem import ProblemData  # noqa: E402
 from .solution import Solution  # noqa: E402
 from .status import SolutionStatus, TerminationStatus  # noqa: E402
 from . import trace  # noqa: E402
-from .presolve import native as _presolve_native  # noqa: E402
-from . import problem_arrays  # noqa: E402
-
-# problem.py and presolve/ stay byte-identical to the reference's, so the
-# array storage of a bulk-loaded matrix (with the "load" call record) and
-# the decode span are put on here.
-for _owner, _name, _fn in problem_arrays.INSTALLED:
-    setattr(_owner, _name, _fn)
-_presolve_native._decode_ops = trace.span("presolve/decode")(
-    _presolve_native._decode_ops)
 
 __all__ = [
     "TerminationStatus",

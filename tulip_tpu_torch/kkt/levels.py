@@ -4,11 +4,10 @@ Counterpart of ``tulip_tpu/kkt/levels.py``; see its docstring for the
 design (nested dissection over the tile graph, block columns grouped into
 ~2·log₂(nb) independent elimination levels, one batched Cholesky, one
 batched triangular inverse or solve and one batched GEMM + scatter-add a
-level). The host functions (``nd_block_order``, ``tile_fill``,
-``column_levels`` and their helpers) are verbatim copies;
-``nd_block_order_pairs`` and ``tile_fill_pairs`` are the port's fronts of
-the first two, which ``kkt/sparse.py`` and ``kkt/sparse_ldl.py`` bind to
-their names: the same results from each distinct block pair once. The plan
+level). The host functions (``column_levels`` and the helpers of
+``nd_block_order``) are verbatim copies; ``nd_block_order`` and
+``tile_fill`` take each distinct block pair once (:func:`distinct_pairs`),
+for the same results as the reference's on every entry. The plan
 (:class:`LevelSeg`, :class:`LevelPlan`, :func:`build_level_plan`) is the
 same plan, with torch index tensors (int64) on an explicit device.
 
@@ -87,8 +86,13 @@ def nd_block_order(bi: np.ndarray, bj: np.ndarray, nbr: int,
     ``bi``/``bj``: block coordinates of the (symmetric) tile pattern.
     ``last``: block rows forced to the end (dense-node deferral).
     Returns a permutation ``order`` with ``order[k]`` = old block row
-    eliminated k-th.
+    eliminated k-th. Counts the coordinates handed in
+    (``level_plan/entries``) and the distinct pairs it works on
+    (``level_plan/block_pairs``) in the open call record.
     """
+    trace.count("level_plan/entries", len(bi))
+    bi, bj = distinct_pairs(bi, bj, nbr)
+    trace.count("level_plan/block_pairs", len(bi))
     adj: List[set] = [set() for _ in range(nbr)]
     for i, j in zip(np.asarray(bi), np.asarray(bj)):
         i, j = int(i), int(j)
@@ -134,6 +138,7 @@ def nd_block_order(bi: np.ndarray, bj: np.ndarray, nbr: int,
 def tile_fill(bi, bj, nbr) -> List[List[int]]:
     """Tile-granular symbolic elimination (right-looking fill): returns the
     sorted strictly-below block rows of each block column after fill."""
+    bi, bj = distinct_pairs(bi, bj, nbr)
     cols = [set() for _ in range(nbr)]
     for i, j in zip(bi, bj):
         if i > j:
@@ -147,10 +152,6 @@ def tile_fill(bi, bj, nbr) -> List[List[int]]:
                 cols[rows[x]].add(rows[y])
     return [sorted(c) for c in cols]
 
-
-# ---------------------------------------------------------------------------
-# Host: fronts that hand the two functions above each block pair once
-# ---------------------------------------------------------------------------
 
 def distinct_pairs(bi, bj, nbr: int):
     """``bi``/``bj`` without their repeated (bi, bj) pairs: the first
@@ -168,24 +169,6 @@ def distinct_pairs(bi, bj, nbr: int):
     first = np.unique(key, return_index=True)[1]
     first.sort()
     return bi[first], bj[first]
-
-
-def nd_block_order_pairs(bi, bj, nbr: int, last: Sequence[int] = (),
-                         leaf: int = 2) -> np.ndarray:
-    """:func:`nd_block_order` on the distinct pairs of ``bi``/``bj``:
-    the same order. Counts the coordinates handed in
-    (``level_plan/entries``) and the pairs passed on
-    (``level_plan/block_pairs``) in the open call record, once a plan."""
-    bi_d, bj_d = distinct_pairs(bi, bj, nbr)
-    trace.count("level_plan/entries", len(bi))
-    trace.count("level_plan/block_pairs", len(bi_d))
-    return nd_block_order(bi_d, bj_d, nbr, last=last, leaf=leaf)
-
-
-def tile_fill_pairs(bi, bj, nbr: int) -> List[List[int]]:
-    """:func:`tile_fill` on the distinct pairs of ``bi``/``bj``: the same
-    fill."""
-    return tile_fill(*distinct_pairs(bi, bj, nbr), nbr)
 
 
 def column_levels(col_rows: List[List[int]]) -> np.ndarray:

@@ -43,12 +43,8 @@ import torch
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
 from .levels import (build_level_plan, cholesky_or_identity, index_add_fixed,
-                     level_bwd, level_factor_spd, level_fwd, segs_to,
-                     solve_lower, solve_right_lower_t)
-# The verbatim plans below call these names: fronts that hand the verbatim
-# functions each distinct block pair once, for the same plan (kkt/levels.py).
-from .levels import nd_block_order_pairs as nd_block_order
-from .levels import tile_fill_pairs as tile_fill
+                     level_bwd, level_factor_spd, level_fwd, nd_block_order,
+                     segs_to, solve_lower, solve_right_lower_t, tile_fill)
 
 
 def tile_plan(A_np: np.ndarray, block: int, use_native: bool = True):

@@ -52,12 +52,8 @@ import torch
 from .base import KKTBackend
 from .dense_ldl import DenseK2Backend, DenseK2State
 from .levels import (build_level_plan, level_bwd, level_factor_signed,
-                     level_fwd, segs_to, signed_pivot, solve_lower,
-                     solve_right_lower_t)
-# The verbatim plans below call these names: fronts that hand the verbatim
-# functions each distinct block pair once, for the same plan (kkt/levels.py).
-from .levels import nd_block_order_pairs as nd_block_order
-from .levels import tile_fill_pairs as tile_fill
+                     level_fwd, nd_block_order, segs_to, signed_pivot,
+                     solve_lower, solve_right_lower_t, tile_fill)
 from .sparse import host_matrix, index_tensor, symbolic_schedule
 
 

@@ -21,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 
+from .. import trace
+from ..problem import ArrayProblemData
 from ..solution import Solution
 from ..status import SolutionStatus, TerminationStatus
 from . import ops as OPS
@@ -94,6 +96,7 @@ def _p(a, tp):
     return a.ctypes.data_as(tp)
 
 
+@trace.span("presolve/decode")
 def _decode_ops(n_ops: int, oi: np.ndarray, od: np.ndarray):
     """Decode the tagged op-log streams into the Python undo records
     (tags documented at the top of native/presolve.cpp)."""
@@ -160,6 +163,38 @@ def _decode_ops(n_ops: int, oi: np.ndarray, od: np.ndarray):
     return ops
 
 
+def _matrix(pb):
+    """``pb``'s matrix as the CSR and CSC arrays ``rp, rj, rv, cp, ci,
+    cv`` in the exact entry order of arows/acols (the Python engine's
+    iteration order — required for identical op streams): from the arrays
+    of an :class:`ArrayProblemData`, else from the lists."""
+    if type(pb) is ArrayProblemData:
+        rowptr, colind, rv = pb.csr
+        colptr, rowind, cv = pb.csc
+        rp, rj = rowptr.astype(np.int32), colind.astype(np.int32)
+        cp, ci = colptr.astype(np.int32), rowind.astype(np.int32)
+    else:
+        rp = np.zeros(pb.ncon + 1, np.int32)
+        for i, row in enumerate(pb.arows):
+            rp[i + 1] = rp[i] + len(row.nzind)
+        rj = np.asarray([j for row in pb.arows for j in row.nzind],
+                        dtype=np.int32)
+        rv = np.asarray([v for row in pb.arows for v in row.nzval],
+                        dtype=np.float64)
+        cp = np.zeros(pb.nvar + 1, np.int32)
+        for j, col in enumerate(pb.acols):
+            cp[j + 1] = cp[j] + len(col.nzind)
+        ci = np.asarray([i for col in pb.acols for i in col.nzind],
+                        dtype=np.int32)
+        cv = np.asarray([v for col in pb.acols for v in col.nzval],
+                        dtype=np.float64)
+    if rj.size == 0:
+        rj = np.zeros(1, np.int32); rv = np.zeros(1, np.float64)
+    if ci.size == 0:
+        ci = np.zeros(1, np.int32); cv = np.zeros(1, np.float64)
+    return rp, rj, rv, cp, ci, cv
+
+
 def presolve_native(ps) -> Optional[TerminationStatus]:
     """Run the native pass loop on a freshly-initialized PresolveData.
 
@@ -174,26 +209,7 @@ def presolve_native(ps) -> Optional[TerminationStatus]:
 
     pb = ps.pb0
     m, n = pb.ncon, pb.nvar
-    # CSR/CSC in the exact entry order of arows/acols (the Python engine's
-    # iteration order — required for identical op streams).
-    rp = np.zeros(m + 1, np.int32)
-    for i, row in enumerate(pb.arows):
-        rp[i + 1] = rp[i] + len(row.nzind)
-    rj = np.asarray([j for row in pb.arows for j in row.nzind],
-                    dtype=np.int32)
-    rv = np.asarray([v for row in pb.arows for v in row.nzval],
-                    dtype=np.float64)
-    cp = np.zeros(n + 1, np.int32)
-    for j, col in enumerate(pb.acols):
-        cp[j + 1] = cp[j] + len(col.nzind)
-    ci = np.asarray([i for col in pb.acols for i in col.nzind],
-                    dtype=np.int32)
-    cv = np.asarray([v for col in pb.acols for v in col.nzval],
-                    dtype=np.float64)
-    if rj.size == 0:
-        rj = np.zeros(1, np.int32); rv = np.zeros(1, np.float64)
-    if ci.size == 0:
-        ci = np.zeros(1, np.int32); cv = np.zeros(1, np.float64)
+    rp, rj, rv, cp, ci, cv = _matrix(pb)
 
     lrow = np.asarray(ps.lrow, np.float64)
     urow = np.asarray(ps.urow, np.float64)

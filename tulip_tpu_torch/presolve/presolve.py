@@ -27,7 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..problem import INF, ProblemData, SparseAxis
+from ..problem import INF, ArrayProblemData, ProblemData, SparseAxis
 from ..solution import Solution
 from ..status import SolutionStatus, TerminationStatus
 from . import ops as OPS
@@ -57,14 +57,19 @@ class PresolveData:
         self.rowflag = [True] * self.nrow
         self.colflag = [True] * self.ncol
 
-        # Active nonzero counts.
-        self.nzrow = [0] * self.nrow
-        self.nzcol = [0] * self.ncol
-        for j, col in enumerate(pb.acols):
-            for i, aij in col.items():
-                if aij != 0.0:
-                    self.nzcol[j] += 1
-                    self.nzrow[i] += 1
+        # Active nonzero counts: on arrays the pointers give them (load
+        # keeps no zero).
+        if type(pb) is ArrayProblemData:
+            self.nzrow = np.diff(pb.csr[0]).tolist()
+            self.nzcol = np.diff(pb.csc[0]).tolist()
+        else:
+            self.nzrow = [0] * self.nrow
+            self.nzcol = [0] * self.ncol
+            for j, col in enumerate(pb.acols):
+                for i, aij in col.items():
+                    if aij != 0.0:
+                        self.nzcol[j] += 1
+                        self.nzrow[i] += 1
 
         # Objective in MIN convention (reference: Presolve.jl:124-134).
         self.objsense = pb.objsense
@@ -887,14 +892,20 @@ def _extract_reduced_arrays(self) -> "ReducedArrays":
     ``row_scaling``/``col_scaling`` used by postsolve) as the list-based
     path — asserted by tests/test_presolve.py equivalence tests — but
     built with numpy gathers/bincounts: O(nnz) C instead of Python loops.
+    On arrays the original matrix comes from ``to_coo``; on lists these
+    ``fromiter`` reads beat the lists' ``to_coo``.
     """
     pb0 = self.pb0
-    I = np.fromiter((i for col in pb0.acols for i in col.nzind),
-                    np.int64, count=sum(len(c.nzind) for c in pb0.acols))
-    J = np.fromiter((j for j, col in enumerate(pb0.acols)
-                     for _ in col.nzind), np.int64, count=I.size)
-    V = np.fromiter((v for col in pb0.acols for v in col.nzval),
-                    np.float64, count=I.size)
+    if type(pb0) is ArrayProblemData:
+        I, J, V = pb0.to_coo()
+    else:
+        I = np.fromiter((i for col in pb0.acols for i in col.nzind),
+                        np.int64,
+                        count=sum(len(c.nzind) for c in pb0.acols))
+        J = np.fromiter((j for j, col in enumerate(pb0.acols)
+                         for _ in col.nzind), np.int64, count=I.size)
+        V = np.fromiter((v for col in pb0.acols for v in col.nzval),
+                        np.float64, count=I.size)
 
     rowflag = np.asarray(self.rowflag, bool)
     colflag = np.asarray(self.colflag, bool)

@@ -10,6 +10,25 @@ The constraint matrix is stored redundantly as both a list of sparse rows and
 a list of sparse columns (reference: src/problemData.jl:43-44) — this is a
 host-side, pointer-chasing structure by design; device arrays are only built
 at standard-form extraction time (:mod:`tulip_tpu.ipm.data`).
+
+Unlike the reference, :meth:`ProblemData.load` keeps the deduplicated
+matrix in CSR and CSC arrays and makes the instance an
+:class:`ArrayProblemData`:
+
+- ``csr = (rowptr, colind, val)``: the column indices sorted within each
+  row, the entries and order of the lists' ``arows``;
+- ``csc = (colptr, rowind, val)``: the row indices sorted within each
+  column, those of ``acols``.
+
+The first read or assignment of ``arows`` or ``acols`` (the Python presolve
+rules, ``get_coefficient``, every mutator) builds the lists as the list
+path of ``load`` does, counts ``problem_lists_built`` in the open call
+record, drops the arrays and turns the instance back into a plain
+``ProblemData``. A problem built through the incremental API or an MPS
+reader never has arrays. The readers of the matrix on ``Model.optimize``'s
+path (``to_coo``, ``nnz``, ``PresolveData.__init__``, ``presolve_native``,
+``extract_reduced_arrays``) read the arrays when they exist, and give the
+lists' output bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +36,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import trace
 
 INF = float("inf")
 
@@ -162,6 +183,7 @@ class ProblemData:
         self.acols.append(col)
         return j
 
+    @trace.call("load")
     def load(self, objsense: bool, obj: Sequence[float], obj0: float,
              A_coo: Tuple[Sequence[int], Sequence[int], Sequence[float]],
              lcon: Sequence[float], ucon: Sequence[float],
@@ -170,7 +192,13 @@ class ProblemData:
              var_names: Optional[Sequence[str]] = None,
              name: str = "") -> None:
         """Bulk-load a problem, replacing current contents
-        (reference: src/problemData.jl:268-317)."""
+        (reference: src/problemData.jl:268-317).
+
+        A ``ProblemData`` keeps the matrix in arrays and becomes an
+        :class:`ArrayProblemData`; a subclass gets the lists."""
+        if type(self) is ArrayProblemData:  # a reload: no lists to build
+            del self.csr, self.csc
+            self.__class__ = ProblemData
         m, n = len(lcon), len(lvar)
         self.__init__(name)
         self.objsense = bool(objsense)
@@ -210,6 +238,16 @@ class ProblemData:
             ukey, sums = ukey[keep], sums[keep]
             I, J, V = ukey // n, ukey % n, sums
 
+        if type(self) is ProblemData:
+            # (I, J, V) is sorted by (i, j); the lists' lexsort sorts by
+            # (j, i).
+            o = np.lexsort((I, J))
+            Jc = J[o]
+            del self.arows, self.acols
+            self.csr = (np.searchsorted(I, np.arange(m + 1)), J, V)
+            self.csc = (np.searchsorted(Jc, np.arange(n + 1)), I[o], V[o])
+            self.__class__ = ArrayProblemData
+            return
         self.arows = [SparseAxis() for _ in range(m)]
         self.acols = [SparseAxis() for _ in range(n)]
         if I.size:
@@ -299,3 +337,62 @@ class ProblemData:
         I, J, V = self.to_coo()
         A[I, J] = V
         return A
+
+
+class ArrayProblemData(ProblemData):
+    """A ``ProblemData`` whose matrix is still in the arrays ``csr`` and
+    ``csc`` that ``load`` left; :meth:`build_lists` makes it a plain
+    ``ProblemData`` again."""
+
+    def build_lists(self) -> ProblemData:
+        """Build ``arows`` and ``acols`` from the arrays as the list path
+        of ``load`` does, drop the arrays and return the plain instance."""
+        rowptr, colind, rval = self.csr
+        colptr, rowind, cval = self.csc
+        del self.csr, self.csc
+        self.__class__ = ProblemData
+        trace.count("problem_lists_built")
+        self.arows = _axes(rowptr, colind, rval)
+        self.acols = _axes(colptr, rowind, cval)
+        return self
+
+    @property
+    def arows(self):
+        return self.build_lists().arows
+
+    @arows.setter
+    def arows(self, value):
+        self.build_lists().arows = value
+
+    @property
+    def acols(self):
+        return self.build_lists().acols
+
+    @acols.setter
+    def acols(self, value):
+        self.build_lists().acols = value
+
+    @property
+    def nnz(self) -> int:
+        return int(self.csc[2].size)
+
+    def to_coo(self):
+        """The list ``to_coo``'s arrays: column by column, rows
+        ascending."""
+        colptr, rowind, val = self.csc
+        J = np.repeat(np.arange(self.nvar, dtype=np.int64), np.diff(colptr))
+        return rowind.copy(), J, val.copy()
+
+
+def _axes(ptr, idx, val):
+    """One ``SparseAxis`` per slice ``ptr[k]:ptr[k + 1]`` (the lists of
+    ``load``)."""
+    il, vl = idx.tolist(), val.tolist()
+    axes = []
+    for k in range(ptr.size - 1):
+        s, e = ptr[k], ptr[k + 1]
+        ax = SparseAxis()
+        if s < e:
+            ax.nzind, ax.nzval = il[s:e], vl[s:e]
+        axes.append(ax)
+    return axes
