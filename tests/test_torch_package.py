@@ -97,7 +97,6 @@ def test_host_module_is_verbatim_copy(rel):
     ("kkt.sparse", "tile_plan"),
     ("kkt.sparse", "symbolic_schedule"),
     ("kkt.sparse", "k1_level_plan"),
-    ("kkt.sparse", "k1_level_plan_pattern"),
     ("kkt.banded", "rcm_bandwidth"),
     ("linprog", "_fill_pbdata"),
     ("utils", "open_maybe_compressed"),

@@ -218,8 +218,9 @@ def test_level_plan_counts_its_block_pairs(calls, monkeypatch):
     """A sparse-first optimize of a bulk-loaded ``staircase_lp(1024)``
     counts the K pattern's block coordinates handed to the level plan's
     order (``level_plan/entries``) and the distinct block pairs passed on
-    (``level_plan/block_pairs``), as numpy counts them; the plan's spans
-    and ``problem_lists_built`` are unchanged."""
+    (``level_plan/block_pairs``), as numpy counts them, the pattern's
+    distinct columns (``level_plan/col_patterns``); the plan's spans and
+    ``problem_lists_built`` are unchanged."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -254,6 +255,8 @@ def test_level_plan_counts_its_block_pairs(calls, monkeypatch):
     counters = rec["counters"]
     assert counters["level_plan/entries"] == Kp.nnz
     assert counters["level_plan/block_pairs"] == pairs
+    assert counters["level_plan/col_patterns"] == \
+        np.unique(pattern.toarray().T, axis=0).shape[0]
     assert Kp.nnz > pairs > 0
     # At this size the plan refuses the tiles after its level plan.
     assert [k for k in rec["times"] if k.startswith("sparse_first/")] == [

@@ -3,8 +3,11 @@ tile-granular sparse Cholesky.
 
 Counterpart of ``tulip_tpu/kkt/sparse.py``; see its docstring for the
 design. The host symbolic phase (``tile_plan``, ``symbolic_schedule``,
-``k1_level_plan``, ``k1_level_plan_pattern``) is a verbatim copy, over the
-native engine of ``native/symbolic.cpp`` (:mod:`.native`). The numeric
+``k1_level_plan``) is a verbatim copy, over the native engine of
+``native/symbolic.cpp`` (:mod:`.native`); ``k1_level_plan_pattern`` is the
+reference's but forms the K pattern with :func:`gram_pattern`, from the
+distinct column patterns, index for index as the reference's product
+(``tests/test_torch_gram_pattern.py``). The numeric
 phase has both of the reference's schedules:
 
 - ``"level"`` (the default): nested-dissection block order and
@@ -40,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from .base import KKTBackend
 from .dense import DenseK1Backend, DenseK1State
 from .levels import (build_level_plan, cholesky_or_identity, index_add_fixed,
@@ -177,6 +181,83 @@ def k1_level_plan(A_np: np.ndarray, block: int, gate: float = 0.5,
     return k1_level_plan_pattern(pattern, A_np.shape, block, gate)
 
 
+def _column_classes(rows: np.ndarray, ptr: np.ndarray, weights: np.ndarray):
+    """Exact classes of equal columns of a CSC pattern.
+
+    ``rows``/``ptr``: the pattern's CSC row indices (sorted within each
+    column) and column pointers; ``weights``: one uint64 a row. Columns
+    are sorted by (length, sum of their rows' weights mod 2⁶⁴), and each
+    is compared entry for entry with the one before it, so two columns
+    share a class only if their row lists are equal, whatever the weights
+    (a collision only splits a class). Returns ``(ids, reps)``: each
+    column's class id and each class's first column.
+    """
+    n = ptr.size - 1
+    lens = np.diff(ptr)
+    sums = np.zeros(rows.size + 1, np.uint64)
+    np.cumsum(weights[rows], out=sums[1:])
+    h = sums[ptr[1:]] - sums[ptr[:-1]]
+    order = np.lexsort((h, lens))
+    cur, prev = order[1:], order[:-1]
+    # same[j]: column j equals the column before it in ``order``.
+    same = np.zeros(n, bool)
+    same[cur] = (lens[cur] == lens[prev]) & (h[cur] == h[prev])
+    shift = np.zeros(n, np.int64)
+    shift[cur] = np.where(same[cur], ptr[prev] - ptr[cur], 0)
+    differ = np.flatnonzero(
+        rows[np.arange(rows.size) + np.repeat(shift, lens)] != rows)
+    same[np.searchsorted(ptr, differ, side="right") - 1] = False
+    new = ~same[order]
+    ids = np.empty(n, np.int64)
+    ids[order] = np.cumsum(new) - 1
+    return ids, order[new]
+
+
+def gram_pattern(pattern):
+    """The pattern of ``pattern @ pattern.T``, from its distinct columns.
+
+    ``pattern``: a scipy CSR 0/1 matrix (every stored value 1; rows may be
+    stored unsorted). Returns a CSR matrix whose ``indptr`` and
+    ``indices`` equal, index for index, those of ``(pattern @
+    pattern.T).tocsr()``, the unsorted order within each row included;
+    its ``data`` may differ (the plan reads only the structure).
+
+    scipy's product emits each row in reverse order of first visit: it
+    walks the row's stored columns in order and, for each, that column's
+    rows ascending. A column whose pattern already appeared earlier in the
+    row visits nothing new, so the product of the row × class matrix
+    (each row's first entry of each class, in stored order) by its
+    transpose visits the same rows in the same order. That holds for any
+    partition into equal columns, a class split in two included. Counts
+    the classes (``level_plan/col_patterns``) in the open call record.
+    """
+    import scipy.sparse as sp
+
+    m, n = pattern.shape
+    nnz = pattern.indices.size
+    # Its columns, each entry holding its position in ``pattern``.
+    csc = sp.csr_matrix((np.arange(nnz, dtype=np.int64), pattern.indices,
+                         pattern.indptr), shape=(m, n)).tocsc()
+    weights = np.random.default_rng(0).integers(
+        1, 2**63, m, dtype=np.uint64)
+    ids, reps = _column_classes(csc.indices, csc.indptr, weights)
+    trace.count("level_plan/col_patterns", reps.size)
+    # Number each (row, class) pair by the row's place in the class's
+    # first column, and keep its first entry in ``pattern``'s order.
+    lens = np.diff(csc.indptr)
+    start = np.concatenate([[0], np.cumsum(lens[reps])])
+    pair = np.arange(nnz) + np.repeat(start[ids] - csc.indptr[:-1], lens)
+    first = np.full(start[-1], nnz, np.int64)
+    np.minimum.at(first, pair, csc.data)
+    keep = np.zeros(nnz, bool)
+    keep[first] = True
+    kept = np.concatenate([[0], np.cumsum(keep)])
+    classes = sp.csr_matrix(
+        (np.ones(kept[-1], np.int32), ids[pattern.indices[keep]],
+         kept[pattern.indptr]), shape=(m, reps.size))
+    return (classes @ classes.T).tocsr()
+
+
 def k1_level_plan_pattern(pattern, shape, block: int, gate: float = 0.5,
                           sup_cap: float = 0.5):
     """Pattern-only core of :func:`k1_level_plan`.
@@ -189,7 +270,7 @@ def k1_level_plan_pattern(pattern, shape, block: int, gate: float = 0.5,
 
     m, n = shape
     B = block
-    Kpat = (pattern @ pattern.T).tocsr()
+    Kpat = gram_pattern(pattern)
     perm0 = np.asarray(reverse_cuthill_mckee(Kpat, symmetric_mode=True))
     nbr = -(-m // B)
     if nbr <= 2:
